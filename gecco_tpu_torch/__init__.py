@@ -12,8 +12,8 @@ Slice ported so far (``gecco run``):
 
 1. gene calling — ``gecco_tpu.orf`` (host, C++ core);
 2. profile-HMM search — ``gecco_tpu_torch.hmm.pipeline``: SSV filter
-   (kernel A), Viterbi F2 gate (kernel B) and Forward rescore (kernel C)
-   on the device, domain definition on the float64 host engine;
+   (kernel A), Viterbi F2 gate (kernel B), Forward rescore (kernel C)
+   and domain definition (kernels D–G, ``hmm/stream.py``) on the device;
 3. CRF decode — ``gecco_tpu_torch.crf`` (plain torch);
 4. refinement and type classification — ``gecco_tpu`` (host).
 

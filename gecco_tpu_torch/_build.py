@@ -1,9 +1,10 @@
 """Build and load the CUDA kernels (``csrc/*.cu``) at first use.
 
-``nvcc`` compiles every source into one shared library with a plain C
-interface, loaded through :mod:`ctypes`.  The library is keyed by a hash
-of the sources and flags and written under ``gecco_tpu_torch/_build/``,
-so a checkout builds once and a source change rebuilds.  A failed build
+One ``nvcc`` per source, all started together, compiles the objects;
+one more links them into a shared library with a plain C interface,
+loaded through :mod:`ctypes`.  The library is keyed by a hash of the
+sources and flags and written under ``gecco_tpu_torch/_build/``, so a
+checkout builds once and a source change rebuilds.  A failed build
 raises; nothing falls back to the plain versions.
 
 Each kernel wrapper counts its launches in :data:`launches`, so a run
@@ -27,11 +28,14 @@ _BUILD = os.path.join(_HERE, "_build")
 
 FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 ]
 
 #: launches of each kernel since the last :func:`reset_launches`
-launches: Dict[str, int] = {"ssv_filter": 0, "viterbi_pairs": 0, "forward_pairs": 0}
+launches: Dict[str, int] = {
+    "ssv_filter": 0, "viterbi_pairs": 0, "forward_pairs": 0,
+    "posterior_fwd": 0, "posterior_bwd": 0, "align_bwd": 0, "align_fwd": 0,
+}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -44,6 +48,16 @@ _SIGNATURES = {
     "gecco_viterbi_pairs": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P],
     "gecco_forward_pairs": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P],
 }
+# kernels D-G: xs, offsets, lens, loops, moves, seq, prof, n_rows, e_odds,
+# trans, model_len, P, Mp, width, stride, then their own arrays and the stream
+_ROWS = [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I]
+_SIGNATURES.update({
+    "gecco_posterior_fwd": _ROWS + [_P, _P, _P],                  # traj, score
+    "gecco_posterior_bwd": _ROWS + [_P, _P, _P, _P],              # traj, score, post
+    "gecco_align_bwd": _ROWS + [_P, _P, _P],                      # planes, logs
+    "gecco_align_fwd": _ROWS + [_P, _P, _P, _P, _P, _P, _P, _P],  # planes, logs, iv, jv,
+                                                                  # total, out, coords
+})
 
 _lock = threading.Lock()
 _library: Optional[ctypes.CDLL] = None
@@ -71,6 +85,36 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _run(commands):
+    """Run ``nvcc`` commands side by side; raise with the output of a failure."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in commands]
+    failed = []
+    for command, proc in zip(commands, procs):
+        output, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(" ".join(command) + "\n" + output)
+    if failed:
+        raise RuntimeError("nvcc failed building the CUDA kernels:\n" + "\n".join(failed))
+
+
+def _compile(sources, target: str) -> None:
+    """One object per ``.cu`` (compiled in parallel), linked into ``target``."""
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=_BUILD) as tmp:
+        objects = []
+        commands = []
+        for path in sources:
+            if path.endswith(".cu"):
+                obj = os.path.join(tmp, os.path.basename(path) + ".o")
+                objects.append(obj)
+                commands.append([nvcc, *FLAGS, "-c", "-o", obj, path])
+        _run(commands)
+        linked = os.path.join(tmp, "lib.so")
+        _run([[nvcc, *FLAGS, "-shared", "-o", linked, *objects]])
+        os.replace(linked, target)
+
+
 def library() -> ctypes.CDLL:
     """The kernel library, built from ``csrc/`` on first call."""
     global _library
@@ -85,17 +129,7 @@ def library() -> ctypes.CDLL:
         os.makedirs(_BUILD, exist_ok=True)
         target = os.path.join(_BUILD, f"libgecco_kernels_{digest.hexdigest()[:16]}.so")
         if not os.path.exists(target):
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
-            os.close(fd)
-            command = [_nvcc(), *FLAGS, "-o", tmp,
-                       *[p for p in sources if p.endswith(".cu")]]
-            proc = subprocess.run(command, capture_output=True, text=True)
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(
-                    "nvcc failed building the CUDA kernels:\n"
-                    + " ".join(command) + "\n" + proc.stdout + proc.stderr)
-            os.replace(tmp, target)
+            _compile(sources, target)
         lib = ctypes.CDLL(target)
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)

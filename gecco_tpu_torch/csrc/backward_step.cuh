@@ -1,0 +1,201 @@
+// The rescaled Backward step shared by kernel E (stream_bwd.cu) and
+// kernel F (align_bwd.cu): gecco_tpu/hmm/stream.py:266-330 and :444-501.
+//
+// With e the emission odds of residue o+1 and the carries of o+1:
+//
+//   q_k = e_{k+1} bM_{k+1},   bB = sum_k bm_k e_k bM_k,
+//   bJ = loop bJ + move bB,   bC = loop bC,   bN = loop bN + move bB,
+//   bE = (bJ + bC) / 2,       bI_k = tim_k q_k + tii_k bI_k,
+//   bD_k = nm_k bE + tdm_k q_k + tdd_k bD_{k+1},
+//   bM_k = nm_k bE + tmm_k q_k + tmi_k bI_k + tmd_k bD_{k+1},
+//
+// every state divided by scale = bN + bJ + bC + bB + 1e-30, ls += log(scale).
+// The row at o = L-1 is the initial one: bM = nm bE0 + tmd * bD_L (shifted),
+// bE0 = move / 2, bC = move, the rest 0.
+//
+// The delete chain runs from the right and needs bE, which needs the
+// block's sum bB.  Because the chain is linear in its input, bD = bE * U
+// + V, where U (the chain of nm alone) is the same at every residue and is
+// computed once into shared memory, and V (the chain of tdm * q) does not
+// need bE: V's scan and bB's sum share one barrier.  Two barriers per
+// residue: one hands each thread's first e*bM to its left neighbour, one
+// publishes the warp totals of V's affine scan and of bB.
+#pragma once
+
+#include "forward_step.cuh"
+
+namespace gecco {
+
+template <int THREADS>
+struct BackwardScratch {
+    float first[THREADS];  // e * bM at each thread's first node
+    float a[THREADS / 32], b[THREADS / 32], s[THREADS / 32];
+};
+
+// Inclusive scan from the right, inside a warp, of the maps v -> ca*v + cb
+// that carry the value entering a thread's chunk from the right to its
+// left end.  (ia, ib): lanes lane..31 composed; (ea, eb): lanes lane+1..31
+// (the identity at lane 31).
+__device__ __forceinline__ void warp_scan_right(float ca, float cb, float& ia, float& ib,
+                                                float& ea, float& eb) {
+    const int lane = threadIdx.x & 31;
+    ia = ca;
+    ib = cb;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+        const float ya = __shfl_down_sync(0xffffffffu, ia, o);
+        const float yb = __shfl_down_sync(0xffffffffu, ib, o);
+        if (lane + o < 32) {
+            ib = ia * yb + ib;
+            ia = ia * ya;
+        }
+    }
+    ea = __shfl_down_sync(0xffffffffu, ia, 1);
+    eb = __shfl_down_sync(0xffffffffu, ib, 1);
+    if (lane == 31) {
+        ea = 1.0f;
+        eb = 0.0f;
+    }
+}
+
+// The Backward recurrence of one row: transitions `tsm` [N_TRANS][WIDTH],
+// `nm` [WIDTH] (bank.e_odds[20], the node mask of the JAX kernels) and
+// `U` [WIDTH + 1] in shared memory; the carries in registers.
+template <int THREADS, int CHUNK>
+struct Backward {
+    static constexpr int WIDTH = THREADS * CHUNK;
+    static constexpr int WARPS = THREADS / 32;
+
+    const float* tsm;
+    const float* nm;
+    float* U;
+    BackwardScratch<THREADS>& sh;
+    float bM[CHUNK], bI[CHUNK];
+    float bN, bJ, bC, ls;
+
+    // U_k = nm_k + tdd_k U_{k+1}, U_WIDTH = 0 (ends with a barrier), then
+    // the initial row.
+    __device__ __forceinline__ void init(float move) {
+        const float* tdd = tsm + T_DD * WIDTH;
+        const float* tmd = tsm + T_MD * WIDTH;
+        const int tid = threadIdx.x;
+        const int warp = tid >> 5;
+        const int base = tid * CHUNK;
+        float ca = 1.0f, cb = 0.0f;
+#pragma unroll
+        for (int j = CHUNK - 1; j >= 0; --j) {
+            cb = nm[base + j] + tdd[base + j] * cb;
+            ca = tdd[base + j] * ca;
+        }
+        float ia, ib, ea, eb;
+        warp_scan_right(ca, cb, ia, ib, ea, eb);
+        if ((tid & 31) == 0) {
+            sh.a[warp] = ia;
+            sh.b[warp] = ib;
+        }
+        __syncthreads();
+        float X = 0.0f;
+        for (int w = WARPS - 1; w > warp; --w) X = sh.a[w] * X + sh.b[w];
+        float v = ea * X + eb;
+        if (tid == THREADS - 1) U[WIDTH] = 0.0f;
+#pragma unroll
+        for (int j = CHUNK - 1; j >= 0; --j) {
+            v = nm[base + j] + tdd[base + j] * v;
+            U[base + j] = v;
+        }
+        __syncthreads();
+        const float bE0 = move * 0.5f;
+#pragma unroll
+        for (int j = 0; j < CHUNK; ++j) {
+            const int k = base + j;
+            bM[j] = nm[k] * bE0 + tmd[k] * (bE0 * U[k + 1]);
+            bI[j] = 0.0f;
+        }
+        bN = 0.0f;
+        bJ = 0.0f;
+        bC = move;
+        ls = 0.0f;
+    }
+
+    // One step to residue o from the carries of o+1, `e` the emission odds
+    // of residue o+1; leaves the rescaled states of o in the carries and
+    // returns the rescaled bB of o.
+    __device__ __forceinline__ float step(const float* __restrict__ e, int M, float loop,
+                                          float move) {
+        const float* tmm = tsm + T_MM * WIDTH;
+        const float* tim = tsm + T_IM * WIDTH;
+        const float* tdm = tsm + T_DM * WIDTH;
+        const float* tmi = tsm + T_MI * WIDTH;
+        const float* tii = tsm + T_II * WIDTH;
+        const float* tmd = tsm + T_MD * WIDTH;
+        const float* tdd = tsm + T_DD * WIDTH;
+        const float* bm = tsm + T_BM * WIDTH;
+        const int tid = threadIdx.x;
+        const int lane = tid & 31;
+        const int warp = tid >> 5;
+        const int base = tid * CHUNK;
+
+        float t[CHUNK];
+        float bb = 0.0f;
+#pragma unroll
+        for (int j = 0; j < CHUNK; ++j) {
+            const int k = base + j;
+            const float ek = k < M ? __ldg(e + k) : 0.0f;
+            t[j] = ek * bM[j];
+            bb += bm[k] * ek * bM[j];
+        }
+        sh.first[tid] = t[0];
+        __syncthreads();
+        const float next = tid + 1 < THREADS ? sh.first[tid + 1] : 0.0f;
+        // V_k = tdm_k q_k + tdd_k V_{k+1}: this thread's composite
+        float ca = 1.0f, cb = 0.0f;
+#pragma unroll
+        for (int j = CHUNK - 1; j >= 0; --j) {
+            const int k = base + j;
+            const float q = j + 1 < CHUNK ? t[j + 1] : next;
+            cb = tdm[k] * q + tdd[k] * cb;
+            ca = tdd[k] * ca;
+        }
+        float ia, ib, ea, eb;
+        warp_scan_right(ca, cb, ia, ib, ea, eb);
+        const float ws = warp_sum(bb);
+        if (lane == 0) {
+            sh.a[warp] = ia;
+            sh.b[warp] = ib;
+            sh.s[warp] = ws;
+        }
+        __syncthreads();
+        float X = 0.0f, Xw = 0.0f, bB = 0.0f;
+        for (int w = WARPS - 1; w >= 0; --w) {
+            if (w == warp) Xw = X;
+            X = sh.a[w] * X + sh.b[w];
+        }
+        for (int w = 0; w < WARPS; ++w) bB += sh.s[w];
+
+        const float bJn = loop * bJ + move * bB;
+        const float bCn = loop * bC;
+        const float bNn = loop * bN + move * bB;
+        const float bEn = 0.5f * bJn + 0.5f * bCn;
+        const float scale = bNn + bJn + bCn + bB + 1e-30f;
+        const float inv = 1.0f / scale;
+        float v = ea * Xw + eb;  // V at node base + CHUNK
+#pragma unroll
+        for (int j = CHUNK - 1; j >= 0; --j) {
+            const int k = base + j;
+            const float q = j + 1 < CHUNK ? t[j + 1] : next;
+            const float d_next = bEn * U[k + 1] + v;  // bD_{k+1}
+            const float bIn = tim[k] * q + tii[k] * bI[j];
+            const float bMn = nm[k] * bEn + tmm[k] * q + tmi[k] * bI[j] + tmd[k] * d_next;
+            v = tdm[k] * q + tdd[k] * v;
+            bM[j] = bMn * inv;
+            bI[j] = bIn * inv;
+        }
+        bN = bNn * inv;
+        bJ = bJn * inv;
+        bC = bCn * inv;
+        ls += logf(scale);
+        return bB * inv;
+    }
+};
+
+}  // namespace gecco

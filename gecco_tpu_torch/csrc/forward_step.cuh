@@ -1,0 +1,153 @@
+// The rescaled Forward step (probability space) shared by kernel C
+// (forward.cu), kernel D (stream_fwd.cu) and kernel G (align_fwd.cu).
+//
+// One block scores one row; thread t holds nodes [t*CHUNK, (t+1)*CHUNK)
+// in registers.  Per residue, with e the emission odds of the residue:
+//
+//   M_k = e_k * (stay_{k-1} + B * bm_k),
+//   stay = M * tmm + I * tim + D * tdm,       I_k = M_k * tmi_k + I_k * tii_k,
+//   D_k = D_{k-1} * tdd_{k-1} + M_{k-1} * tmd_{k-1},
+//   E = sum_k (M_k + D_k); J, C, N, B of the multihit length model;
+//   total = E + B + N + C + 1e-30, every state *= 1/total
+//
+// (gecco_tpu/hmm/stream.py:118-152).  The delete chain is computed exactly
+// as a scan of affine maps D -> a*D + b across the nodes (thread-local,
+// then a warp shuffle scan, then a pass over the warp totals); the E sum
+// rides in the same pass, because each thread's share of sum_k D_k is
+// itself affine in the value entering its warp.  Two barriers.
+#pragma once
+
+#include "common.cuh"
+
+namespace gecco {
+
+// The transition planes of the bank, in its order.
+enum { T_MM, T_IM, T_DM, T_MI, T_II, T_MD, T_DD, T_BM, N_TRANS };
+
+template <int THREADS>
+struct ForwardScratch {
+    float stay[THREADS];
+    float a[THREADS / 32], b[THREADS / 32], p[THREADS / 32], q[THREADS / 32];
+};
+
+// One Forward step over this thread's nodes; `tsm` holds the 8 transition
+// planes [N_TRANS][WIDTH] (zero past M), `e` the emission odds of the
+// residue (node 0, read for k < M).  Leaves the rescaled states in place
+// and returns the step's total.
+template <int THREADS, int CHUNK>
+__device__ __forceinline__ float forward_step(float (&Mv)[CHUNK], float (&Iv)[CHUNK],
+                                              float (&Dv)[CHUNK], float& N, float& B, float& J,
+                                              float& C, const float* __restrict__ e,
+                                              const float* tsm, int M, float loop, float move,
+                                              ForwardScratch<THREADS>& sh) {
+    constexpr int WIDTH = THREADS * CHUNK;
+    constexpr int WARPS = THREADS / 32;
+    const float* tmm = tsm + T_MM * WIDTH;
+    const float* tim = tsm + T_IM * WIDTH;
+    const float* tdm = tsm + T_DM * WIDTH;
+    const float* tmi = tsm + T_MI * WIDTH;
+    const float* tii = tsm + T_II * WIDTH;
+    const float* tmd = tsm + T_MD * WIDTH;
+    const float* tdd = tsm + T_DD * WIDTH;
+    const float* bm = tsm + T_BM * WIDTH;
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
+    const int base = tid * CHUNK;
+
+    {
+        const int k = base + CHUNK - 1;
+        sh.stay[tid] = Mv[CHUNK - 1] * tmm[k] + Iv[CHUNK - 1] * tim[k] + Dv[CHUNK - 1] * tdm[k];
+    }
+    __syncthreads();
+    const float prev = tid > 0 ? sh.stay[tid - 1] : 0.0f;
+#pragma unroll
+    for (int j = CHUNK - 1; j >= 0; --j) {
+        const int k = base + j;
+        const int q = j > 0 ? j - 1 : 0;  // node k-1 of this chunk
+        const float stay = j > 0 ? Mv[q] * tmm[base + q] + Iv[q] * tim[base + q] +
+                                       Dv[q] * tdm[base + q]
+                                 : prev;
+        if (k < M) {
+            const float mn = __ldg(e + k) * (stay + B * bm[k]);
+            Iv[j] = Mv[j] * tmi[k] + Iv[j] * tii[k];
+            Mv[j] = mn;
+        } else {
+            Mv[j] = 0.0f;
+            Iv[j] = 0.0f;
+        }
+    }
+    // G_k = tdd_k * G_{k-1} + tmd_k * M_k is what node k sends on, and
+    // D_k = G_{k-1}.  (ca, cb) composes this thread's maps; sum_D = sa *
+    // G_in + sb is the thread's share of sum_k D_k.
+    float ca = 1.0f, cb = 0.0f, sa = 0.0f, sb = 0.0f, sum_m = 0.0f;
+#pragma unroll
+    for (int j = 0; j < CHUNK; ++j) {
+        const int k = base + j;
+        sum_m += Mv[j];
+        sa += ca;
+        sb += cb;
+        cb = tdd[k] * cb + tmd[k] * Mv[j];
+        ca = tdd[k] * ca;
+    }
+    float ia = ca, ib = cb;  // warp-inclusive composite
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+        const float ya = __shfl_up_sync(0xffffffffu, ia, o);
+        const float yb = __shfl_up_sync(0xffffffffu, ib, o);
+        if (lane >= o) {
+            ib = ia * yb + ib;
+            ia = ya * ia;
+        }
+    }
+    float ea = __shfl_up_sync(0xffffffffu, ia, 1);
+    float eb = __shfl_up_sync(0xffffffffu, ib, 1);
+    if (lane == 0) {
+        ea = 1.0f;
+        eb = 0.0f;
+    }
+    const float pw = warp_sum(sa * ea);
+    const float qw = warp_sum(sa * eb + sb + sum_m);
+    if (lane == 31) {
+        sh.a[warp] = ia;
+        sh.b[warp] = ib;
+    }
+    if (lane == 0) {
+        sh.p[warp] = pw;
+        sh.q[warp] = qw;
+    }
+    __syncthreads();
+    float X = 0.0f, mine = 0.0f, E = 0.0f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+        if (w == warp) mine = X;
+        E += sh.p[w] * X + sh.q[w];
+        X = sh.a[w] * X + sh.b[w];
+    }
+    float g = ea * mine + eb;
+#pragma unroll
+    for (int j = 0; j < CHUNK; ++j) {
+        const int k = base + j;
+        Dv[j] = k < M ? g : 0.0f;
+        g = tdd[k] * g + tmd[k] * Mv[j];
+    }
+    const float Jn = J * loop + E * 0.5f;
+    const float Cn = C * loop + E * 0.5f;
+    const float Nn = N * loop;
+    const float Bn = (Nn + Jn) * move;
+    const float total = E + Bn + Nn + Cn + 1e-30f;
+    const float inv = 1.0f / total;
+#pragma unroll
+    for (int j = 0; j < CHUNK; ++j) {
+        Mv[j] *= inv;
+        Iv[j] *= inv;
+        Dv[j] *= inv;
+    }
+    N = Nn * inv;
+    B = Bn * inv;
+    J = Jn * inv;
+    C = Cn * inv;
+    return total;
+}
+
+}  // namespace gecco

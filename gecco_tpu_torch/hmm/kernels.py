@@ -228,6 +228,42 @@ def flatten_pairs(survivors: Dict[int, List[int]]) -> Tuple["numpy.ndarray", "nu
     return s, p
 
 
+def launch_rows(fn_name: str, counter: str, pack: SeqPack, bank: TorchBank,
+                seq: torch.Tensor, prof: torch.Tensor, width: int, *tail: torch.Tensor,
+                log_space: bool, stride=None) -> None:
+    """Launch kernel ``fn_name`` once over the rows ``(seq[r], prof[r])``.
+
+    Every row kernel (B–G) takes the pack, the rows' ``int32`` indices,
+    the bank and ``width``; kernels D–G add ``stride``.  ``tail`` are the
+    kernel's own arrays, passed in order before the stream.
+    """
+    _check_pack_bank(pack, bank, log_space)
+    for name, t in (("row sequences", seq), ("row profiles", prof)):
+        _check(t, torch.int32, name, bank.device)
+    for t in tail:
+        if t.device != bank.device or not t.is_contiguous():
+            raise ValueError(f"{fn_name}: argument not contiguous on {bank.device}")
+    n = seq.numel()
+    if n == 0:
+        return
+    emissions = bank.e_log if log_space else bank.e_odds
+    trans = bank.trans_log if log_space else bank.trans
+    loops = pack.loops_log if log_space else pack.loops_exp
+    moves = pack.moves_log if log_space else pack.moves_exp
+    fn = getattr(_build.library(), fn_name)
+    with torch.cuda.device(bank.device):
+        stream = torch.cuda.current_stream(bank.device).cuda_stream
+        code = fn(
+            pack.xs.data_ptr(), pack.offsets.data_ptr(), pack.lens.data_ptr(),
+            loops.data_ptr(), moves.data_ptr(), seq.data_ptr(), prof.data_ptr(), n,
+            emissions.data_ptr(), trans.data_ptr(), bank.lengths.data_ptr(),
+            bank.P, bank.Mp, width, *(() if stride is None else (stride,)),
+            *[t.data_ptr() for t in tail], stream,
+        )
+    _build.check(code, fn_name)
+    _build.launches[counter] += 1
+
+
 def launch_pairs(fn_name: str, counter: str, pack: SeqPack, bank: TorchBank,
                  seq_idx, prof_idx, log_space: bool) -> torch.Tensor:
     """Launch a pair kernel once per width class; scores in input order."""
@@ -248,26 +284,9 @@ def launch_pairs(fn_name: str, counter: str, pack: SeqPack, bank: TorchBank,
     prof_t = torch.as_tensor(prof_idx[order].astype(numpy.int32), device=bank.device)
     scores = torch.empty(n, dtype=torch.float32, device=bank.device)
     bounds = numpy.flatnonzero(numpy.diff(width[order])) + 1
-    starts = numpy.concatenate(([0], bounds))
-    ends = numpy.concatenate((bounds, [n]))
-    emissions = bank.e_log if log_space else bank.e_odds
-    trans = bank.trans_log if log_space else bank.trans
-    loops = pack.loops_log if log_space else pack.loops_exp
-    moves = pack.moves_log if log_space else pack.moves_exp
-    lib = _build.library()
-    fn = getattr(lib, fn_name)
-    with torch.cuda.device(bank.device):
-        stream = torch.cuda.current_stream(bank.device).cuda_stream
-        for a, b in zip(starts, ends):
-            code = fn(
-                pack.xs.data_ptr(), pack.offsets.data_ptr(), pack.lens.data_ptr(),
-                loops.data_ptr(), moves.data_ptr(),
-                seq_t[a:].data_ptr(), prof_t[a:].data_ptr(), int(b - a),
-                emissions.data_ptr(), trans.data_ptr(), bank.lengths.data_ptr(),
-                bank.P, bank.Mp, int(width[order[a]]), scores[a:].data_ptr(), stream,
-            )
-            _build.check(code, fn_name)
-            _build.launches[counter] += 1
+    for a, b in zip(numpy.concatenate(([0], bounds)), numpy.concatenate((bounds, [n]))):
+        launch_rows(fn_name, counter, pack, bank, seq_t[a:b], prof_t[a:b],
+                    int(width[order[a]]), scores[a:b], log_space=log_space)
     out[torch.as_tensor(order, device=bank.device)] = scores
     return out
 

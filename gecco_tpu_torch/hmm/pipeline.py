@@ -8,10 +8,13 @@ device), with the stages of hmmsearch:
 2. **Viterbi F2 gate** of the filter survivors (kernel B);
 3. **Forward** rescore of the F2 survivors, exponential-tail threshold
    ``F3`` (kernel C);
-4. **domain definition** on the float64 host engine
-   (``gecco_tpu.hmm.engine``): the f64 Forward rescore re-applies the
-   F3 / E-value / bit-cutoff gates before ``engine.define_domains``,
-   exactly the JAX package's non-Pallas domain path.
+4. **domain definition** of the F3 / E-value / bit-cutoff candidates
+   by :class:`gecco_tpu_torch.hmm.stream.StreamDomains` (kernels D–G),
+   as the JAX package's Pallas path: sequence scores and E-values are
+   the float32 F3 values, with no float64 rescore.  The float64 host
+   engine defines the domains only of pairs whose envelope slots
+   overflow or whose sequence exceeds 4,096 residues; ``host_pairs``
+   counts them.
 
 ``backend="cuda"`` runs the stages through the kernel wrappers (which
 take the plain versions for tensors on the CPU); ``backend="torch"``
@@ -26,9 +29,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy
 
-from gecco_tpu.hmm import engine
 from gecco_tpu.hmm.batch import ProfileBank
-from gecco_tpu.hmm.engine import DomainHit, exp_surv
+from gecco_tpu.hmm.engine import DomainHit
 from gecco_tpu.hmm.kernels import bias_logratio
 from gecco_tpu.hmm.pipeline import SequenceHit, _exp_surv_vec, _gumbel_surv_vec
 from gecco_tpu.hmm.profile import SearchProfile, null1_score
@@ -39,7 +41,7 @@ from .kernels import (
     SeqPack, flatten_pairs, pack_mask, ssv_filter, ssv_filter_plain,
     viterbi_pairs, viterbi_pairs_plain,
 )
-from .stream import forward_pairs, forward_pairs_plain
+from .stream import StreamDomains, forward_pairs, forward_pairs_plain
 
 __all__ = ["SequenceHit", "SearchPipeline"]
 
@@ -87,6 +89,8 @@ class SearchPipeline:
         self.stage_counts: Dict[str, int] = {}
         self.stage_seconds: Dict[str, float] = {}
         self.stage_cells: Dict[str, float] = {}
+        #: pairs of the last search whose domains the host engine defined
+        self.host_pairs = 0
         self._bank = ProfileBank.build(self.profiles) if self.profiles else None
         self._torch_bank: Optional[TorchBank] = None
         self._logratio = None
@@ -120,6 +124,7 @@ class SearchPipeline:
         self.stage_counts = {}
         self.stage_seconds = {}
         self.stage_cells = {}
+        self.host_pairs = 0
         if not self.profiles or not sequences:
             return []
         ssv, viterbi, forward = _SCORERS[self.backend]
@@ -215,31 +220,12 @@ class SearchPipeline:
         if not candidates:
             return []
 
-        # domain definition on the float64 host engine, re-applying the
-        # reporting gates to the f64 rescore
-        domains_of: Dict[Tuple[int, int], List[DomainHit]] = {}
-        rescored: List[Tuple[int, int, float, float]] = []
-        for i, p, _, _ in candidates:
-            gm = self.profiles[p]
-            x = sequences[i]
-            fwd = engine.forward(gm, x)
-            bits64 = (fwd.score - nullsc[i]) / LOG2
-            tau, lam = gm.hmm.stats.get("FORWARD", (0.0, math.log(2.0)))
-            pv64 = exp_surv(bits64, tau, lam)
-            if self.bit_cutoffs is not None:
-                cutoff = self._cutoff(gm)
-                if cutoff is not None and bits64 < cutoff[0]:
-                    continue
-            else:
-                bits_filt = bits64 - float(filter_extra(
-                    numpy.asarray([i]), numpy.asarray([p]))[0]) / LOG2
-                if exp_surv(bits_filt, tau, lam) > self.F3:
-                    continue
-                if pv64 * Z > self.E:
-                    continue
-            domains_of[(i, p)] = engine.define_domains(gm, x, fwd)
-            rescored.append((i, p, bits64, pv64))
-        candidates = rescored
+        # domain definition on the device (kernels D-G), as the JAX
+        # package's Pallas path; reported scores are the f32 F3 values
+        domains = StreamDomains(bank, self.profiles, backend=self.backend)
+        domains_of = domains.define(
+            sequences, [(i, p) for i, p, _, _ in candidates], pack=pack)
+        self.host_pairs = domains.host_pairs
 
         hits: List[SequenceHit] = []
         for i, p, bits, pv in candidates:

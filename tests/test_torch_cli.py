@@ -4,10 +4,13 @@ A small synthetic genome whose genes carry planted domains of a small
 calibrated bank (written as ``.h3m``, accessions taken from the embedded
 model's Pfam whitelist so the annotator keeps them) goes through
 ``gecco_tpu_torch``'s CLI on the CPU and ``gecco_tpu``'s CLI with
-``--backend xla``.  ``genes.tsv`` must be byte-equal; ``features.tsv``
-and ``clusters.tsv`` must have the same rows, with numeric columns
-within 1e-6 relative (float32 device scores vs the XLA engines feed
-only the gates; reported values come from the same float64 host engine).
+``--backend pallas`` (its kernels in interpret mode), the path whose
+domain definition the port follows: float32 device scores, no float64
+rescore.  ``genes.tsv`` must be byte-equal; ``features.tsv`` and
+``clusters.tsv`` must have the same rows, with numeric columns within
+1e-6 relative, except the domains' ``i_evalue`` and ``pvalue``: float32
+domain scores summed in another order than JAX's, which the exponential
+tail turns into up to ~1e-4 relative, held at 1e-3.
 """
 
 import io
@@ -91,24 +94,29 @@ def _run(tmp, out, runner, extra):
             for kind in ("genes", "features", "clusters")}
 
 
+#: relative tolerance of the columns holding device domain scores
+DOMAIN_SCORE_REL = {"i_evalue": 1e-3, "pvalue": 1e-3}
+
+
 def _assert_tables_close(mine, theirs):
     rows_a = [r.split("\t") for r in mine.strip().split("\n")]
     rows_b = [r.split("\t") for r in theirs.strip().split("\n")]
     assert len(rows_a) == len(rows_b) and rows_a[0] == rows_b[0]
+    rel = [DOMAIN_SCORE_REL.get(column, 1e-6) for column in rows_a[0]]
     for ra, rb in zip(rows_a[1:], rows_b[1:]):
         assert len(ra) == len(rb)
-        for a, b in zip(ra, rb):
+        for a, b, tol in zip(ra, rb, rel):
             try:
                 fa, fb = float(a), float(b)
             except ValueError:
                 assert a == b
             else:
-                assert fa == pytest.approx(fb, rel=1e-6, abs=1e-300)
+                assert fa == pytest.approx(fb, rel=tol, abs=1e-300)
 
 
 @pytest.fixture(scope="module")
 def jax_tables(inputs):
-    return _run(inputs, inputs / "jax", jax_main, ["--backend", "xla"])
+    return _run(inputs, inputs / "jax", jax_main, ["--backend", "pallas"])
 
 
 @pytest.mark.parametrize("backend", ["cuda", "torch"])
