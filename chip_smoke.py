@@ -16,7 +16,9 @@ Phases (each prints its wall seconds, each ends in a device sync):
    their planted profiles (the bank's width classes in turn) and against
    the wide profile, one launch per width class as the search makes
    them, and over the envelope rows those pairs yield (every class has
-   rows);
+   rows); the dense kernel H in both semirings over 32 proteins against
+   the whole bank (every width class, 128 to 4,096 nodes), and against
+   kernels C and B on the same pairs;
 3. search: ``SearchPipeline(backend="cuda").search`` at the benchmark
    shape (a 3,230-gene synthetic genome, ~3,000 called proteins cut to
    512 residues with planted domains, 2,766 profiles calibrated by the
@@ -24,16 +26,26 @@ Phases (each prints its wall seconds, each ends in a device sync):
    survivor funnel, the pairs whose domains the host engine defined,
    peak device memory, and the same search on plain PyTorch for the
    first proteins as a reference;
-4. CLI: ``gecco-tpu-torch run`` on the genome with the calibrated bank
+4. max-filter search: ``SearchPipeline(max_filter=True,
+   backend="cuda").search`` (hmmsearch ``--max``) over the same
+   workload, every pair Forward-scored by kernel H: its funnel, launch
+   counts, the candidates that reach domain definition, peak device
+   memory, its hits against the default search's (a superset) and
+   against the same search on plain PyTorch for the first proteins;
+5. CLI: ``gecco-tpu-torch run`` on the genome with the calibrated bank
    written as ``.h3m`` (accessions renamed to the embedded model's
    Pfam whitelist).
 
-The search of phase 3 runs under ``torch.profiler`` (device activity
-only), which gives each kernel's device milliseconds and the card's
-idle share of the search.  The line before the last is a JSON object
-describing each kernel; the last line is ``{"ok": true, "device":
-{...}}``.  Any failure exits non-zero before that line.  JAX is blocked
-from import: the port and this script must run without it.
+The searches of phases 3 and 4 run under ``torch.profiler`` (device
+activity only), which gives each kernel's device milliseconds and the
+card's idle share of the search; the launch counts are set to 0 just
+before each search and read just after it.  The line before the last
+is a JSON object describing each kernel (its launches on the search
+that runs it, its error against the plain version, its time, the plain
+version's time and its bound); the last line is ``{"ok": true,
+"device": {...}}``.  Any failure exits non-zero before that line.  JAX
+and the JAX package are blocked from import: the port and this script
+must run without them.
 """
 
 import json
@@ -44,6 +56,7 @@ import tempfile
 import time
 
 sys.modules["jax"] = None  # any import of JAX fails
+sys.modules["gecco_tpu"] = None  # and of the JAX package
 
 import numpy
 import torch
@@ -52,6 +65,8 @@ N_PROFILES = 2766
 GENOME_GENES = 3230
 WIDE_NODES = 2100
 DOMAIN_PROTEINS = 256
+#: proteins of the dense kernel's check against its plain version
+DENSE_PROTEINS = 32
 #: the survivor funnel of the search through F3 (``stage_counts``)
 FUNNEL = {"pairs": 8339490, "F1": 417790, "F2": 31893, "F3": 1800}
 #: absolute tolerances (nats, or probabilities): max-plus kernels are
@@ -59,7 +74,11 @@ FUNNEL = {"pairs": 8339490, "F1": 417790, "F2": 31893, "F3": 1800}
 #: scales sum in another order than the plain versions; trajectories,
 #: posteriors and null2 log-ratios likewise
 TOL = {"ssv_filter": 1e-4, "viterbi_pairs": 1e-4, "forward_pairs": 1e-3,
-       "trajectory": 1e-4, "log_scale": 1e-3, "logn2": 1e-3}
+       "trajectory": 1e-4, "log_scale": 1e-3, "logn2": 1e-3,
+       "dense_forward": 1e-3, "dense_viterbi": 1e-4}
+#: kernel H against kernels C and B (the same functions by other
+#: recurrences: per-pair blocks, and B in log space)
+CROSS_TOL = 5e-3
 #: relative tolerance of the bfloat16 planes: one bfloat16 step (2^-7 of
 #: the value at the bottom of a binade), where float32 values that differ
 #: in their last bits round apart
@@ -72,12 +91,37 @@ REPLACES = {
     "posterior_bwd": ("gecco_tpu_torch/csrc/stream_bwd.cu", "gecco_tpu/hmm/stream.py:216"),
     "align_bwd": ("gecco_tpu_torch/csrc/align_bwd.cu", "gecco_tpu/hmm/stream.py:395"),
     "align_fwd": ("gecco_tpu_torch/csrc/align_fwd.cu", "gecco_tpu/hmm/stream.py:568"),
+    "dense_scores": ("gecco_tpu_torch/csrc/dense.cu", "gecco_tpu/hmm/kernels.py:1051"),
 }
 #: name of each wrapper's ``__global__`` function (templates add ``<W>``)
 GLOBALS = {"ssv_filter": "ssv_kernel", "viterbi_pairs": "viterbi_kernel",
            "forward_pairs": "forward_kernel", "posterior_fwd": "posterior_fwd_kernel",
            "posterior_bwd": "posterior_bwd_kernel", "align_bwd": "align_bwd_kernel",
-           "align_fwd": "align_fwd_kernel"}
+           "align_fwd": "align_fwd_kernel", "dense_scores": "dense_kernel"}
+#: the kernels of each search: the default path (phase 3) and max_filter (phase 4)
+DEFAULT_PATH = ("ssv_filter", "viterbi_pairs", "forward_pairs", "posterior_fwd",
+                "posterior_bwd", "align_bwd", "align_fwd")
+MAX_FILTER_PATH = ("dense_scores", "posterior_fwd", "posterior_bwd", "align_bwd", "align_fwd")
+#: the least time of a kernel's work (``bound_ms``): the larger of its float
+#: operations over the H100 SXM's float32 peak outside the tensor cores and
+#: its bytes (each input read once, each output written once) over the HBM
+#: rate (NVIDIA's data sheet, at the 700 W limit)
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+#: float operations per DP cell (one residue against one node) of each
+#: recurrence: A = emission minus loop, entry max, add, running max; B = the
+#: max-plus M/I/D updates (11) and the prefix-max delete chain (3) and E (1);
+#: C, D and H's Forward = the sum-product updates (11), delete chain (3),
+#: E sum (2), rescale (3), H's Viterbi one fewer (E a max of M alone); E and
+#: F = the Backward step with its delete chain and rescale; G = the Forward
+#: and the envelope Forward (2 x 19), posteriors (6) and the optimal-accuracy
+#: DP (20)
+FLOPS_PER_CELL = {"ssv_filter": 4, "viterbi_pairs": 15, "forward_pairs": 19,
+                  "posterior_fwd": 19, "posterior_bwd": 24, "align_bwd": 24,
+                  "align_fwd": 64, "dense_forward": 19, "dense_viterbi": 18}
+#: float32 planes a Forward/Backward kernel reads per node of a profile
+#: (21 emission rows and 8 transitions)
+PLANES = 29
 
 
 def require(condition, message):
@@ -100,6 +144,35 @@ class Phase:
         print(f"# phase {self.name}: {time.perf_counter() - self.t0:.3f} s"
               + ("" if kind is None else " FAILED"), flush=True)
         return False
+
+
+def bound(flops, nbytes):
+    """``bound_ms`` and ``bound_by`` of work of ``flops`` and ``nbytes``."""
+    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def pair_work(pack, lengths, s_idx, p_idx, per_cell, out_bytes, planes=PLANES):
+    """``(flops, bytes)`` of a recurrence over pairs ``(s_idx[r], p_idx[r])``:
+    the DP cells of this run's sequences and models, each sequence's
+    residues and each profile's rows read once, the int32 pair indices and
+    ``out_bytes`` of outputs."""
+    s_idx, p_idx = numpy.asarray(s_idx), numpy.asarray(p_idx)
+    cells = float((pack.lens_host[s_idx].astype(numpy.float64) * lengths[p_idx]).sum())
+    nbytes = (float(pack.lens_host[numpy.unique(s_idx)].sum())
+              + 4.0 * planes * float(lengths[numpy.unique(p_idx)].sum())
+              + 8.0 * len(s_idx) + out_bytes)
+    return cells * per_cell, nbytes
+
+
+def all_pairs_work(pack, lengths, per_cell, planes=PLANES):
+    """``(flops, bytes)`` of a recurrence over every pair of the pack and
+    the bank (its ``[S, P]`` float32 scores written once)."""
+    cells = float(pack.lens_host.sum()) * float(lengths.sum())
+    nbytes = (float(pack.lens_host.sum()) + 4.0 * planes * float(lengths.sum())
+              + 4.0 * pack.S * len(lengths))
+    return cells * per_cell, nbytes
 
 
 def timed_ms(fn, repeats):
@@ -139,7 +212,8 @@ def phase_kernels(device, report):
 
     got, ms = timed_ms(lambda: ssv_filter(pack, bank), 5)
     want, plain_ms = timed_ms(lambda: ssv_filter_plain(pack, bank), 1)
-    report("ssv_filter", [("ssv_filter", got, want)], ms, plain_ms)
+    report("ssv_filter", [("ssv_filter", got, want)], ms, plain_ms,
+           all_pairs_work(pack, lengths, FLOPS_PER_CELL["ssv_filter"], planes=21))
 
     # survivor-like pairs: every protein against random profiles, plus
     # every protein against the wide profile
@@ -150,13 +224,47 @@ def phase_kernels(device, report):
     print(f"# pair kernels: {len(s_idx)} pairs, "
           f"{int(sum(lengths[p] * pack.lens_host[s] for s, p in zip(s_idx, p_idx)))} cells",
           flush=True)
-    got, ms = timed_ms(lambda: viterbi_pairs(pack, bank, s_idx, p_idx), 3)
-    want, plain_ms = timed_ms(lambda: viterbi_pairs_plain(pack, bank, s_idx, p_idx), 1)
-    report("viterbi_pairs", [("viterbi_pairs", got, want)], ms, plain_ms)
-    got, ms = timed_ms(lambda: forward_pairs(pack, bank, s_idx, p_idx), 3)
-    want, plain_ms = timed_ms(lambda: forward_pairs_plain(pack, bank, s_idx, p_idx), 1)
-    report("forward_pairs", [("forward_pairs", got, want)], ms, plain_ms)
+    for name, kernel, plain in (("viterbi_pairs", viterbi_pairs, viterbi_pairs_plain),
+                                ("forward_pairs", forward_pairs, forward_pairs_plain)):
+        got, ms = timed_ms(lambda: kernel(pack, bank, s_idx, p_idx), 3)
+        want, plain_ms = timed_ms(lambda: plain(pack, bank, s_idx, p_idx), 1)
+        report(name, [(name, got, want)], ms, plain_ms,
+               pair_work(pack, lengths, s_idx, p_idx, FLOPS_PER_CELL[name], 4.0 * len(s_idx)))
+    phase_dense_kernel(device, bank, seqs[:DENSE_PROTEINS], report)
     phase_domain_kernels(device, profiles, bank, report)
+
+
+def phase_dense_kernel(device, bank, seqs, report):
+    """Kernel H in both semirings against its plain version, every width
+    class of the bank, and against kernels C and B on the same pairs."""
+    from gecco_tpu_torch.hmm.kernels import (
+        SeqPack, dense_scores, dense_scores_plain, viterbi_pairs)
+    from gecco_tpu_torch.hmm.stream import forward_pairs
+
+    pack = SeqPack(seqs, device)
+    lengths = bank.lengths.cpu().numpy()
+    print(f"# dense kernel: {pack.S} proteins x {bank.P} profiles, classes "
+          f"{[w for w, _ in bank.classes]}", flush=True)
+    s_idx = numpy.repeat(numpy.arange(pack.S), bank.P)
+    p_idx = numpy.tile(numpy.arange(bank.P), pack.S)
+    checks, timings = [], {}
+    for semiring, pair_kernel in (("forward", forward_pairs), ("viterbi", viterbi_pairs)):
+        viterbi = semiring == "viterbi"
+        got, ms = timed_ms(lambda: dense_scores(pack, bank, viterbi=viterbi), 3)
+        want, plain_ms = timed_ms(lambda: dense_scores_plain(pack, bank, viterbi=viterbi), 1)
+        checks.append((f"dense_{semiring}", got, want))
+        timings[semiring] = (ms, plain_ms, all_pairs_work(
+            pack, lengths, FLOPS_PER_CELL[f"dense_{semiring}"]))
+        cross = pair_kernel(pack, bank, s_idx, p_idx).view(pack.S, bank.P)
+        err = float((cross - got).abs().max())
+        print(f"# kernel dense_scores ({semiring}) against the pair kernel: max abs "
+              f"{err!r} (tol {CROSS_TOL})", flush=True)
+        require(err <= CROSS_TOL, f"dense {semiring} disagrees with the pair kernel: {err}")
+    ms, plain_ms, work = timings["forward"]
+    v_ms, v_plain_ms, v_work = timings["viterbi"]
+    report("dense_scores", checks, ms, plain_ms, work,
+           viterbi_ms=v_ms, viterbi_plain_ms=v_plain_ms,
+           viterbi_bound_ms=bound(*v_work)["bound_ms"])
 
 
 def phase_domain_kernels(device, profiles, bank, report):
@@ -187,6 +295,8 @@ def phase_domain_kernels(device, profiles, bank, report):
     print(f"# domain kernels: {len(s_all)} pairs, per class "
           f"{[(int(w), int((width == w).sum())) for w in classes]}", flush=True)
 
+    lengths = bank.lengths.cpu().numpy()
+
     def run(fn, plain, arg_lists, repeats):
         """Outputs of kernel and plain version per launch; summed mean ms of each."""
         ms = plain_ms = 0.0
@@ -199,15 +309,47 @@ def phase_domain_kernels(device, profiles, bank, report):
             outs.append((got, want))
         return outs, ms, plain_ms
 
+    def work(name, arg_lists, outs, in_bytes=lambda args: 0.0, cells_to=None):
+        """Summed ``(flops, bytes)`` of the launches: each row's cells (to
+        ``cells_to(args)`` residues where given, else its length), rows
+        and inputs read once, outputs (the kernel's tensors) written once."""
+        flops = nbytes = 0.0
+        for args, (got, _want) in zip(arg_lists, outs):
+            s_idx, p_idx = args[0], args[1]
+            out_bytes = sum(float(t.numel() * t.element_size())
+                            for t in (got if isinstance(got, tuple) else (got,)))
+            f, b = pair_work(pack, lengths, s_idx, p_idx, FLOPS_PER_CELL[name],
+                             out_bytes + in_bytes(args))
+            if cells_to is not None:
+                f = FLOPS_PER_CELL[name] * float(
+                    (numpy.asarray(cells_to(args), numpy.float64) * lengths[p_idx]).sum())
+            flops += f
+            nbytes += b
+        return flops, nbytes
+
+    def tensor_bytes(*tensors):
+        return sum(float(t.numel() * t.element_size()) for t in tensors)
+
+    def envelope_bytes(args):
+        """Kernel G's inputs: the bfloat16 planes and float32 logs of each
+        row's envelope residues only, its envelope and its total."""
+        _s, _p, planes, logs, iv, jv, total = args
+        residues = float((numpy.asarray(jv) - numpy.asarray(iv) + 1).sum())
+        return (residues * (planes.shape[0] * planes.shape[3] * planes.element_size()
+                            + logs.shape[0] * logs.element_size())
+                + tensor_bytes(total) + 8.0 * len(iv))
+
     outs, ms, plain_ms = run(stream.posterior_fwd, stream.posterior_fwd_plain, groups, 3)
     report("posterior_fwd",
            [("trajectory", got[0][:4], want[0][:4]) for got, want in outs]
            + [("log_scale", got[0][4], want[0][4]) for got, want in outs]
-           + [("log_scale", got[1], want[1]) for got, want in outs], ms, plain_ms)
+           + [("log_scale", got[1], want[1]) for got, want in outs], ms, plain_ms,
+           work("posterior_fwd", groups, outs))
     fwd = [want for _got, want in outs]
-    outs, ms, plain_ms = run(stream.posterior_bwd, stream.posterior_bwd_plain,
-                             [(*g, *f) for g, f in zip(groups, fwd)], 3)
-    report("posterior_bwd", [("trajectory", got, want) for got, want in outs], ms, plain_ms)
+    bwd_args = [(*g, *f) for g, f in zip(groups, fwd)]
+    outs, ms, plain_ms = run(stream.posterior_bwd, stream.posterior_bwd_plain, bwd_args, 3)
+    report("posterior_bwd", [("trajectory", got, want) for got, want in outs], ms, plain_ms,
+           work("posterior_bwd", bwd_args, outs, in_bytes=lambda a: tensor_bytes(*a[2:])))
 
     # the envelope rows of every pair, from the plain posteriors; a class
     # whose pairs yield no envelope takes each pair's whole sequence
@@ -229,38 +371,30 @@ def phase_domain_kernels(device, profiles, bank, report):
     print(f"# alignment rows per class (width, rows, whole sequences): {per_class}", flush=True)
     require(all(n > 0 for _w, n, _forced in per_class), "a width class has no alignment row")
 
-    outs, ms, plain_ms = run(stream.align_bwd, stream.align_bwd_plain, [g for g, _env in rows], 2)
+    bwd_rows = [g for g, _env in rows]
+    outs, ms, plain_ms = run(stream.align_bwd, stream.align_bwd_plain, bwd_rows, 2)
     report("align_bwd",
            [("planes", got[0], want[0]) for got, want in outs]
-           + [("log_scale", got[1], want[1]) for got, want in outs], ms, plain_ms)
+           + [("log_scale", got[1], want[1]) for got, want in outs], ms, plain_ms,
+           work("align_bwd", bwd_rows, outs))
     planes = [want for _got, want in outs]
-    outs, ms, plain_ms = run(stream.align_fwd, stream.align_fwd_plain,
-                             [(*g, *pl, *env) for (g, env), pl in zip(rows, planes)], 2)
+    fwd_rows = [(*g, *pl, *env) for (g, env), pl in zip(rows, planes)]
+    outs, ms, plain_ms = run(stream.align_fwd, stream.align_fwd_plain, fwd_rows, 2)
     for got, want in outs:
         require(torch.equal(got[1], want[1]), "align_fwd coordinates differ from plain")
     report("align_fwd",
            [("log_scale", got[0][:, 0], want[0][:, 0]) for got, want in outs]
-           + [("logn2", got[0][:, 1:], want[0][:, 1:]) for got, want in outs], ms, plain_ms)
+           + [("logn2", got[0][:, 1:], want[0][:, 1:]) for got, want in outs], ms, plain_ms,
+           work("align_fwd", fwd_rows, outs, in_bytes=envelope_bytes, cells_to=lambda a: a[5]))
 
 
-def phase_search(device, state):
+def profiled_search(pipeline, seqs, device, path):
+    """One search with the launch counts set to 0 just before it and read
+    just after, under ``torch.profiler`` (device activity only); prints its
+    accounting and requires every kernel of ``path`` to have launched and
+    every hit to be well formed.  Returns the hits and the launch counts."""
     from gecco_tpu_torch import _build
-    from gecco_tpu_torch.hmm.calibrate import calibrate
-    from gecco_tpu_torch.hmm.pipeline import SearchPipeline
-    from gecco_tpu_torch.hmm.synthetic import bench_workload
 
-    t0 = time.perf_counter()
-    genome, profiles, seqs = bench_workload(GENOME_GENES, N_PROFILES)
-    print(f"# workload: {len(genome)} bp, {len(seqs)} proteins "
-          f"({sum(map(len, seqs))} residues) x {len(profiles)} profiles "
-          f"in {time.perf_counter() - t0:.3f} s", flush=True)
-    t0 = time.perf_counter()
-    calibrate(profiles, device=device)
-    torch.cuda.synchronize()
-    print(f"# calibrate (port, kernels): {time.perf_counter() - t0:.3f} s", flush=True)
-
-    pipeline = SearchPipeline(profiles, device=device, Z=N_PROFILES, domZ=N_PROFILES,
-                              backend="cuda")
     _ = pipeline.bank  # upload outside the timed search
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
@@ -293,23 +427,29 @@ def phase_search(device, state):
     print(f"# domains: {pipeline.host_pairs} of {pipeline.stage_counts['F3']} candidate pairs "
           f"defined by the host engine; peak device memory "
           f"{torch.cuda.max_memory_allocated(device)} bytes", flush=True)
-    for name, count in launches.items():
-        require(count > 0, f"kernel {name} was not launched by the search")
-    for stage, count in FUNNEL.items():
-        require(pipeline.stage_counts.get(stage) == count,
-                f"funnel at {stage}: {pipeline.stage_counts.get(stage)} != {count}")
+    for name in path:
+        require(launches[name] > 0, f"kernel {name} was not launched by the search")
     require(pipeline.stage_counts.get("reported", 0) > 0, "no hit reported")
-    for h in hits:
-        require(numpy.isfinite(h.score) and h.domains, f"malformed hit {h}")
-        for d in h.domains:
-            require(1 <= d.ienv <= d.target_from <= d.target_to <= d.jenv
-                    and 1 <= d.hmm_from <= d.hmm_to <= h.profile.M
-                    and numpy.isfinite(d.bitscore), f"malformed domain {d}")
+    # messages are built only for a failure: a hit's repr prints its
+    # profile's arrays, and a search may report ~10^5 hits
+    bad = [(h.sequence_index, h.profile.name) for h in hits
+           if not (numpy.isfinite(h.score) and h.domains)]
+    require(not bad, f"malformed hits {bad[:5]}")
+    bad = [(h.sequence_index, h.profile.name, d) for h in hits for d in h.domains
+           if not (1 <= d.ienv <= d.target_from <= d.target_to <= d.jenv
+                   and 1 <= d.hmm_from <= d.hmm_to <= h.profile.M
+                   and numpy.isfinite(d.bitscore))]
+    require(not bad, f"malformed domains {bad[:5]}")
+    return hits, launches
 
-    # reference: the same search on the plain PyTorch versions, first proteins
-    head = seqs[:48]
+
+def compare_with_plain(pipeline, profiles, head, device, **options):
+    """The same search of the first proteins on the plain PyTorch versions:
+    the same funnel, hits and domain coordinates, scores within 5e-3 bits."""
+    from gecco_tpu_torch.hmm.pipeline import SearchPipeline
+
     plain = SearchPipeline(profiles, device=device, Z=N_PROFILES, domZ=N_PROFILES,
-                           backend="torch")
+                           backend="torch", **options)
     a, b = pipeline.search(head), plain.search(head)
     require(pipeline.stage_counts == plain.stage_counts,
             f"funnel {pipeline.stage_counts} != plain {plain.stage_counts}")
@@ -326,7 +466,63 @@ def phase_search(device, state):
                     f"domain score {dx.bitscore} != plain {dy.bitscore}")
     print(f"# reference (plain torch, {len(head)} proteins): {len(b)} hits agree, "
           f"stage_counts {json.dumps(plain.stage_counts)}", flush=True)
-    state.update(genome=genome, profiles=profiles, launches=launches)
+
+
+def phase_search(device, state):
+    from gecco_tpu_torch.hmm.calibrate import calibrate
+    from gecco_tpu_torch.hmm.pipeline import SearchPipeline
+    from gecco_tpu_torch.hmm.synthetic import bench_workload
+    from gecco_tpu_torch.orf import _native
+
+    t0 = time.perf_counter()
+    genome, profiles, seqs = bench_workload(GENOME_GENES, N_PROFILES)
+    print(f"# workload: {len(genome)} bp, {len(seqs)} proteins "
+          f"({sum(map(len, seqs))} residues) x {len(profiles)} profiles "
+          f"in {time.perf_counter() - t0:.3f} s; gene calling on the "
+          f"{_native.path()} ORF path", flush=True)
+    t0 = time.perf_counter()
+    calibrate(profiles, device=device)
+    torch.cuda.synchronize()
+    print(f"# calibrate (port, kernels): {time.perf_counter() - t0:.3f} s", flush=True)
+
+    pipeline = SearchPipeline(profiles, device=device, Z=N_PROFILES, domZ=N_PROFILES,
+                              backend="cuda")
+    hits, launches = profiled_search(pipeline, seqs, device, DEFAULT_PATH)
+    for stage, count in FUNNEL.items():
+        require(pipeline.stage_counts.get(stage) == count,
+                f"funnel at {stage}: {pipeline.stage_counts.get(stage)} != {count}")
+    compare_with_plain(pipeline, profiles, seqs[:48], device)
+    state.update(genome=genome, profiles=profiles, seqs=seqs, launches=launches,
+                 hits={(h.sequence_index, h.profile.name) for h in hits})
+
+
+def phase_max_filter(device, state):
+    """hmmsearch ``--max``: every pair Forward-scored by kernel H."""
+    from gecco_tpu_torch.hmm.kernels import SeqPack
+    from gecco_tpu_torch.hmm.pipeline import SearchPipeline
+
+    profiles, seqs = state["profiles"], state["seqs"]
+    pipeline = SearchPipeline(profiles, device=device, Z=N_PROFILES, domZ=N_PROFILES,
+                              max_filter=True, backend="cuda")
+    hits, launches = profiled_search(pipeline, seqs, device, MAX_FILTER_PATH)
+    pairs = FUNNEL["pairs"]
+    require(pipeline.stage_counts["F1"] == pipeline.stage_counts["F2"] == pairs,
+            f"max_filter funnel {pipeline.stage_counts} does not pass all {pairs} pairs")
+    require(pipeline.stage_cells["filter"] == 0.0, "max_filter charged filter cells")
+    for name in ("ssv_filter", "viterbi_pairs", "forward_pairs"):
+        require(launches[name] == 0, f"max_filter launched the filter kernel {name}")
+    got = {(h.sequence_index, h.profile.name) for h in hits}
+    require(state["hits"] <= got, f"{len(state['hits'] - got)} default hits missing "
+                                  "from the max_filter search")
+    print(f"# max_filter: {pipeline.stage_counts['F3']} candidate pairs reached domain "
+          f"definition; {len(got)} hits, {len(got - state['hits'])} beyond the default "
+          f"search's {len(state['hits'])}", flush=True)
+    work = all_pairs_work(SeqPack(seqs, device), pipeline.bank.lengths.cpu().numpy(),
+                          FLOPS_PER_CELL["dense_forward"])
+    print(f"# kernel dense_scores on the search: {json.dumps(bound(*work))} "
+          f"({work[0]!r} flops, {work[1]!r} bytes)", flush=True)
+    compare_with_plain(pipeline, profiles, seqs[:48], device, max_filter=True)
+    state.update(max_launches=launches)
 
 
 def phase_cli(device, state):
@@ -367,11 +563,14 @@ def main():
     kernels = {}
     state = {}
 
-    def report(name, checks, ms, plain_ms):
+    def report(name, checks, ms, plain_ms, work, **extra):
         """Hold a kernel's outputs against its plain version's: ``checks`` are
         ``(tolerance key, got, want)``.  ``max_abs_err`` covers the outputs
         held to an absolute tolerance; the bfloat16 planes are held to
-        ``|got - want| <= 1e-30 + PLANE_RTOL |want|`` and give ``max_rel_err``."""
+        ``|got - want| <= 1e-30 + PLANE_RTOL |want|`` and give ``max_rel_err``.
+        ``work`` is the ``(flops, bytes)`` of the timed launches, whose bound
+        goes beside ``ms``; no single PyTorch call computes these
+        recurrences, so ``library_ms`` is null."""
         entry = {"max_abs_err": 0.0}
         for key, got, want in checks:
             got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
@@ -389,10 +588,11 @@ def main():
             require(e <= TOL[key], f"{name} disagrees with its plain version: {key} {e}")
             entry["max_abs_err"] = max(entry["max_abs_err"], e)
         tols = sorted({TOL[key] for key, *_rest in checks if key in TOL})
+        entry.update(ms=ms, plain_ms=plain_ms, **bound(*work), library_ms=None, **extra)
         print(f"# kernel {name}: {json.dumps(entry)} (abs tol {tols}"
               + (f", planes rel tol {PLANE_RTOL}" if "max_rel_err" in entry else "")
-              + f") kernel {ms!r} ms, plain {plain_ms!r} ms", flush=True)
-        kernels[name] = {**entry, "ms": ms, "plain_ms": plain_ms}
+              + f"; {work[0]!r} flops, {work[1]!r} bytes)", flush=True)
+        kernels[name] = entry
 
     with Phase("1 device"):
         smi = subprocess.run(
@@ -410,16 +610,19 @@ def main():
         phase_kernels(device, report)
     with Phase("3 search"):
         phase_search(device, state)
-    with Phase("4 cli"):
+    with Phase("4 max-filter search"):
+        phase_max_filter(device, state)
+    with Phase("5 cli"):
         phase_cli(device, state)
 
     loaded = sorted(name for name, module in sys.modules.items()
-                    if module is not None and name.split(".")[0] == "jax")
-    require(not loaded, f"JAX was imported: {loaded}")
+                    if module is not None and name.split(".")[0] in ("jax", "gecco_tpu"))
+    require(not loaded, f"JAX or the JAX package was imported: {loaded}")
+    # each kernel's launches on the search whose path it is
+    launches = {**state["launches"], "dense_scores": state["max_launches"]["dense_scores"]}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": REPLACES[name][0],
-         "replaces": REPLACES[name][1], "launches": state["launches"][name],
-         **kernels[name]}
+         "replaces": REPLACES[name][1], "launches": launches[name], **kernels[name]}
         for name in REPLACES
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -35,6 +35,7 @@ FLAGS = [
 launches: Dict[str, int] = {
     "ssv_filter": 0, "viterbi_pairs": 0, "forward_pairs": 0,
     "posterior_fwd": 0, "posterior_bwd": 0, "align_bwd": 0, "align_fwd": 0,
+    "dense_scores": 0,
 }
 
 _P = ctypes.c_void_p
@@ -47,6 +48,9 @@ _SIGNATURES = {
     # e, trans, model_len, P, Mp, width, out, stream
     "gecco_viterbi_pairs": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P],
     "gecco_forward_pairs": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P],
+    # xs, offsets, lens, loops, moves, n_seqs, e_odds, trans, prof_idx,
+    # n_prof, model_len, P, Mp, width, viterbi, out, stream
+    "gecco_dense_scores": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P, _P],
 }
 # kernels D-G: xs, offsets, lens, loops, moves, seq, prof, n_rows, e_odds,
 # trans, model_len, P, Mp, width, stride, then their own arrays and the stream

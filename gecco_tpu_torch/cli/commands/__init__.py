@@ -9,11 +9,9 @@ import signal
 import warnings
 from typing import Callable, Dict, Iterable, Optional, TextIO, Type
 
-from gecco_tpu import __version__
-from gecco_tpu.cli._log import make_logger
-from gecco_tpu.cli.commands import _common as _jax_common
-
-from . import run
+from ... import __version__
+from .._log import make_logger
+from . import _common, run
 
 __all__ = ["configure_parser", "main"]
 
@@ -55,14 +53,13 @@ def main(
     version: str = __version__,
 ) -> int:
     """Run the command line interface; returns a POSIX exit code."""
-    from gecco_tpu.profiling import TIMER
-    from gecco_tpu.types import TypeClassifier
-
     from ...crf import ClusterCRF
+    from ...profiling import TIMER
+    from ...types import TypeClassifier
 
     crf_type = crf_type or ClusterCRF
     classifier_type = classifier_type or TypeClassifier
-    default_hmms = default_hmms or _jax_common.default_hmms
+    default_hmms = default_hmms or _common.default_hmms
     parser = configure_parser(program, version, defaults or {})
     if stream is not None:
         def _patch(target: argparse.ArgumentParser) -> None:

@@ -1,26 +1,75 @@
 """Domain annotation of proteins with profile HMM libraries, on PyTorch.
 
-Port of ``gecco_tpu.hmm.ProfileHMMAnnotator``: the library loading,
-whitelist and relabelling are inherited; the search runs on
+Port of ``gecco_tpu.hmm``: the ``HMM`` library descriptor, the
+``DomainAnnotator`` base, ``embedded_hmms`` and the library loading,
+whitelist and relabelling of ``ProfileHMMAnnotator`` are copied as
+they are; the search runs on
 :class:`gecco_tpu_torch.hmm.pipeline.SearchPipeline` on an explicit
 device.
 """
 
-from typing import Callable, Container, Dict, Iterable, List, Optional
+import abc
+import configparser
+import os
+import re
+import typing
+from typing import Any, Callable, Container, Dict, Iterable, Iterator, List, Optional
 
-from gecco_tpu.hmm import HMM, DomainAnnotator, embedded_hmms
-from gecco_tpu.hmm import ProfileHMMAnnotator as _JaxAnnotator
-from gecco_tpu.hmm.io import encode_sequence
-from gecco_tpu.hmm.profile import SearchProfile
-from gecco_tpu.interpro import InterPro
-from gecco_tpu.model import Domain, Gene
-
+from .._meta import UniversalContainer
+from ..interpro import InterPro
+from ..model import Domain, Gene
+from .io import encode_sequence, parse_hmmer3
 from .pipeline import SearchPipeline
+from .profile import SearchProfile, configure_local
 
 __all__ = ["HMM", "DomainAnnotator", "ProfileHMMAnnotator", "embedded_hmms"]
 
+_DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "data")
 
-class ProfileHMMAnnotator(_JaxAnnotator):
+
+class HMM(typing.NamedTuple):
+    """A profile HMM library descriptor (mirrors the reference ``HMM``)."""
+
+    id: str
+    version: str
+    url: str
+    path: str
+    size: Optional[int] = None
+    relabel_with: Optional[str] = None
+    md5: Optional[str] = None
+
+    def relabel(self, domain: str) -> str:
+        """Apply the ``s/regex/replacement/`` accession rewrite, if any."""
+        if self.relabel_with is None:
+            return domain
+        match = re.match("^s/(.*)/(.*)/$", self.relabel_with)
+        if match is None:
+            raise ValueError(f"invalid relabel pattern: {self.relabel_with!r}")
+        before, after = match.groups()
+        return re.sub(before, after, domain)
+
+
+class DomainAnnotator(metaclass=abc.ABCMeta):
+    """An abstract annotator of genes with protein domains."""
+
+    def __init__(
+        self,
+        hmm: HMM,
+        cpus: Optional[int] = None,
+        whitelist: Optional[Container[str]] = None,
+    ) -> None:
+        super().__init__()
+        self.hmm = hmm
+        self.cpus = cpus
+        self.whitelist = UniversalContainer() if whitelist is None else whitelist
+
+    @abc.abstractmethod
+    def run(self, genes: Iterable[Gene]) -> List[Gene]:
+        """Annotate the proteins of ``genes`` in place and return them."""
+        return NotImplemented
+
+
+class ProfileHMMAnnotator(DomainAnnotator):
     """Annotates genes by searching the library with the port's pipeline."""
 
     def __init__(
@@ -35,6 +84,17 @@ class ProfileHMMAnnotator(_JaxAnnotator):
         super().__init__(hmm, cpus=cpus, whitelist=whitelist)
         self.device = device
         self.backend = backend
+        self._profiles: Optional[List[SearchProfile]] = None
+
+    def _load_profiles(self) -> List[SearchProfile]:
+        if self._profiles is None:
+            self._profiles = [
+                configure_local(raw)
+                for raw in parse_hmmer3(self.hmm.path)
+                if raw.accession is None
+                or self.hmm.relabel(raw.accession) in self.whitelist
+            ]
+        return self._profiles
 
     def run(
         self,
@@ -87,3 +147,35 @@ class ProfileHMMAnnotator(_JaxAnnotator):
                     )
                 )
         return gene_index
+
+
+def embedded_hmms(directory: Optional[str] = None) -> Iterator[HMM]:
+    """Discover embedded HMM libraries described by ``*.ini`` sidecars.
+
+    Each ``NAME.ini`` must sit next to a ``NAME.hmm`` (HMMER3 ASCII,
+    possibly gzipped as ``NAME.hmm.gz``) or a pressed binary
+    ``NAME.h3m`` — the layout the reference ships
+    (``setup.py:344-372``), so a reference-built data
+    directory drops in directly; ``io.parse_hmmer3`` handles both
+    formats.
+    """
+    directory = directory or _DATA_DIR
+    for filename in sorted(os.listdir(directory)):
+        if not filename.endswith(".ini"):
+            continue
+        cfg = configparser.ConfigParser()
+        cfg.read(os.path.join(directory, filename))
+        args: Dict[str, Any] = dict(cfg.items("hmm"))
+        size = int(args.pop("size", 0))
+        stem = os.path.join(directory, filename[:-4])
+        for suffix in (".hmm", ".hmm.gz", ".h3m", ".h3m.gz"):
+            if os.path.exists(stem + suffix):
+                yield HMM(path=stem + suffix, size=size, **args)
+                break
+        else:
+            raise FileNotFoundError(
+                f"{filename}: no {stem + '.hmm'!r} (or .hmm.gz / .h3m / .h3m.gz) next "
+                "to it — build the embedded library with "
+                "tools/build_data.py, or pass --hmm with your own HMMER3 "
+                "file"
+            )

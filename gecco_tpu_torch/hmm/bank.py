@@ -1,11 +1,12 @@
 """The profile bank as device tensors.
 
-Counterpart of ``gecco_tpu.hmm.batch.ProfileBank`` (the numpy bank the
-JAX package builds, reused here as is) and of the device-side tensors
-the JAX kernels derive from it: the log-space tensors of
-``gecco_tpu.hmm.kernels.viterbi_log_tensors`` (recomputed here in
-numpy, since that function ends in ``jnp``) and the composition-bias
-log ratios of ``kernels.bias_logratio``.
+:class:`ProfileBank` and :func:`bias_logratio` are copies of
+``gecco_tpu.hmm.batch.ProfileBank`` (the numpy bank, without its
+``select``) and ``gecco_tpu.hmm.kernels.bias_logratio`` (the
+composition-bias log ratios).  :class:`TorchBank` holds the device-side
+tensors the kernels derive from it: the probability-space bank and the
+log-space tensors of ``gecco_tpu.hmm.kernels.viterbi_log_tensors``
+(recomputed here in numpy, since that function ends in ``jnp``).
 
 Layout: ``[21, P, Mp]`` emissions and ``[8, P, Mp]`` transitions
 (``tmm, tim, tdm, tmi, tii, tmd, tdd, bm``), nodes on the last axis, one
@@ -14,20 +15,146 @@ also grouped into power-of-two *width classes* (128 … 4096 nodes): the
 kernels launch once per class, sized to it.
 """
 
+import math
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy
 import torch
 
-from gecco_tpu.hmm.batch import ProfileBank
-from gecco_tpu.hmm.kernels import bias_logratio
+from .profile import SearchProfile
 
-__all__ = ["TorchBank", "NEG", "MAX_WIDTH", "width_class", "log_tensors"]
+__all__ = [
+    "ProfileBank", "TorchBank", "NEG", "MAX_WIDTH", "bias_logratio", "width_class",
+    "log_tensors",
+]
 
 NEG = -1e30
 #: widest profile (nodes) the kernels take
 MAX_WIDTH = 4096
+_K = 21  # 20 amino acids + degenerate
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@dataclass
+class ProfileBank:
+    """A set of profiles packed into padded prob-space tensors.
+
+    * ``e_odds`` — ``[21, P, Mp]`` match emission odds (exp of log-odds);
+      0 at padded nodes, 1 for the degenerate residue row at real nodes.
+    * transition tensors ``[P, Mp]`` (probability space, 0 at pads):
+      ``tmm/tim/tdm`` feed node ``k+1`` from ``k``; ``tmi/tii`` stay at
+      ``k``; ``tmd/tdd`` feed the delete chain; ``bm`` is local entry.
+    * ``lengths`` — real model length per profile.
+    """
+
+    e_odds: "numpy.ndarray"
+    tmm: "numpy.ndarray"
+    tim: "numpy.ndarray"
+    tdm: "numpy.ndarray"
+    tmi: "numpy.ndarray"
+    tii: "numpy.ndarray"
+    tmd: "numpy.ndarray"
+    tdd: "numpy.ndarray"
+    bm: "numpy.ndarray"
+    msv_tbm: "numpy.ndarray"  # [P] uniform MSV entry prob 2/(M(M+1))
+    lengths: "numpy.ndarray"  # [P] int32
+    names: List[str]
+    accessions: List[str]
+    fwd_tau: "numpy.ndarray"     # [P] FORWARD exponential-tail tau (bits)
+    fwd_lambda: "numpy.ndarray"  # [P]
+    msv_mu: "numpy.ndarray"      # [P] MSV Gumbel mu (bits)
+    msv_lambda: "numpy.ndarray"  # [P]
+    vit_mu: "numpy.ndarray"      # [P] VITERBI Gumbel mu (bits)
+    vit_lambda: "numpy.ndarray"  # [P]
+
+    @property
+    def P(self) -> int:
+        return self.e_odds.shape[1]
+
+    @property
+    def Mp(self) -> int:
+        return self.e_odds.shape[2]
+
+    @classmethod
+    def build(cls, profiles: Sequence[SearchProfile], lane: int = 128) -> "ProfileBank":
+        P = len(profiles)
+        Mp = _round_up(max(gm.M for gm in profiles), lane)
+        e_odds = numpy.zeros((_K, P, Mp), dtype=numpy.float32)
+        arrays = {
+            name: numpy.zeros((P, Mp), dtype=numpy.float32)
+            for name in ("tmm", "tim", "tdm", "tmi", "tii", "tmd", "tdd", "bm")
+        }
+        msv_tbm = numpy.zeros(P, dtype=numpy.float32)
+        lengths = numpy.zeros(P, dtype=numpy.int32)
+        uncalibrated: List[str] = []
+        stats = {key: numpy.zeros(P, dtype=numpy.float32) for key in
+                 ("fwd_tau", "fwd_lambda", "msv_mu", "msv_lambda",
+                  "vit_mu", "vit_lambda")}
+        names, accessions = [], []
+        for p, gm in enumerate(profiles):
+            M = gm.M
+            # node k of the profile sits at lane k-1
+            e_odds[:, p, :M] = numpy.exp(
+                numpy.where(numpy.isfinite(gm.msc[1:, :]), gm.msc[1:, :], -745.0)
+            ).T.astype(numpy.float32)
+            for name, source in (
+                ("tmm", gm.tmm), ("tim", gm.tim), ("tdm", gm.tdm),
+                ("tmi", gm.tmi), ("tii", gm.tii),
+                ("tmd", gm.tmd), ("tdd", gm.tdd), ("bm", gm.bm),
+            ):
+                values = numpy.exp(numpy.where(numpy.isfinite(source[1:]), source[1:], -745.0))
+                arrays[name][p, :M] = values.astype(numpy.float32)
+            msv_tbm[p] = 2.0 / (M * (M + 1.0))
+            lengths[p] = M
+            names.append(gm.name)
+            accessions.append(gm.accession or gm.name)
+            tau, lam = gm.hmm.stats.get("FORWARD", (0.0, math.log(2.0)))
+            stats["fwd_tau"][p], stats["fwd_lambda"][p] = tau, lam
+            # profiles without STATS MSV/VITERBI calibration must not be
+            # dropped by the F1/F2 Gumbel gates (hmmsearch only applies
+            # filter thresholds to calibrated models): mu = -inf makes
+            # the survival p-value 0, i.e. the gate always passes
+            mu, mlam = gm.hmm.stats.get("MSV", (-1e30, math.log(2.0)))
+            stats["msv_mu"][p], stats["msv_lambda"][p] = mu, mlam
+            vmu, vlam = gm.hmm.stats.get("VITERBI", (-1e30, math.log(2.0)))
+            stats["vit_mu"][p], stats["vit_lambda"][p] = vmu, vlam
+            if "MSV" not in gm.hmm.stats or "VITERBI" not in gm.hmm.stats:
+                uncalibrated.append(gm.name)
+        if uncalibrated:
+            import warnings
+
+            warnings.warn(
+                f"{len(uncalibrated)} profile(s) lack STATS MSV/VITERBI "
+                f"calibration (e.g. {uncalibrated[0]!r}); the F1/F2 filter "
+                "gates will pass them through unfiltered — calibrate with "
+                "gecco_tpu_torch.hmm.calibrate for filter-speed parity",
+                stacklevel=2,
+            )
+        return cls(
+            e_odds=e_odds, msv_tbm=msv_tbm, lengths=lengths,
+            names=names, accessions=accessions,
+            fwd_tau=stats["fwd_tau"], fwd_lambda=stats["fwd_lambda"],
+            msv_mu=stats["msv_mu"], msv_lambda=stats["msv_lambda"],
+            vit_mu=stats["vit_mu"], vit_lambda=stats["vit_lambda"],
+            **arrays,
+        )
+
+
+def bias_logratio(bank: ProfileBank) -> "numpy.ndarray":
+    """``log(compo_p[a] / bg[a])`` per profile — the composition filter.
+
+    ``compo_p`` is the profile's mean match emission distribution (the
+    analog of HMMER's ``COMPO`` line); derived from the bank's odds
+    tensor: ``mean_k e_odds[a, p, k] = compo_p[a] / bg[a]``.
+    Returns ``[20, P]`` float32.
+    """
+    sums = bank.e_odds[:20].sum(axis=2)            # [20, P]
+    ratio = sums / numpy.maximum(bank.lengths, 1)[None, :]
+    return numpy.log(numpy.maximum(ratio, 1e-30)).astype(numpy.float32)
 
 
 def width_class(M: int) -> int:

@@ -12,12 +12,11 @@ from typing import List, Sequence
 
 import numpy
 
-from gecco_tpu.hmm.io import BACKGROUND_F
-from gecco_tpu.hmm.profile import SearchProfile, null1_score
-
 from .._device import resolve_device
 from .bank import TorchBank
+from .io import BACKGROUND_F
 from .kernels import SeqPack, ssv_filter, viterbi_pairs
+from .profile import SearchProfile, null1_score
 from .stream import forward_pairs
 
 __all__ = ["calibrate"]

@@ -1,4 +1,5 @@
-"""Sequence pack, SSV filter (kernel A) and Viterbi pair scores (kernel B).
+"""Sequence pack, SSV filter (kernel A), Viterbi pair scores (kernel B)
+and dense all-pairs scores (kernel H).
 
 Counterparts in ``gecco_tpu.hmm.kernels``:
 
@@ -11,7 +12,14 @@ Counterparts in ``gecco_tpu.hmm.kernels``:
   Gumbel threshold with the composition-bias null, as plain torch;
 * :func:`viterbi_pairs` — ``PairForwardKernel.call_packed`` through
   ``PairBucketed.flat_packed`` (log-space Viterbi): scores of listed
-  pairs for the F2 gate.
+  pairs for the F2 gate;
+* :func:`dense_scores` — ``ForwardKernel`` / ``ViterbiKernel`` through
+  ``Bucketed`` (``_pallas_fwd``): Forward or Viterbi scores of every
+  pair, the rescore of the ``max_filter`` search (hmmsearch ``--max``).
+
+The plain probability-space steps (:func:`_forward_step` and its
+max-plus form :func:`_viterbi_step`) are shared with the plain versions
+of kernels C, D and G in ``stream.py``.
 
 Each kernel wrapper dispatches on the device of the tensors it is
 given: CPU tensors go to the plain PyTorch version in this module, CUDA
@@ -25,18 +33,22 @@ from typing import Dict, List, Sequence, Tuple
 import numpy
 import torch
 
-from gecco_tpu.hmm.profile import length_model, null1_score
-
 from .. import _build
 from .bank import NEG, TorchBank
+from .profile import length_model, null1_score
 
 __all__ = [
     "SeqPack", "ssv_filter", "ssv_filter_plain", "pack_mask",
     "viterbi_pairs", "viterbi_pairs_plain", "flatten_pairs",
+    "dense_scores", "dense_scores_plain",
 ]
 
 LOG2 = math.log(2.0)
 LOG_HALF = math.log(0.5)
+#: smallest normal float32; kernel H flushes values below it to zero
+_FLT_MIN = float(numpy.finfo(numpy.float32).tiny)
+#: cells (rows x nodes) of one plane of the plain dense scorer
+_PLAIN_CELLS = 1 << 22
 
 
 class SeqPack:
@@ -357,4 +369,163 @@ def viterbi_pairs_plain(pack: SeqPack, bank: TorchBank, seq_idx, prof_idx,
             M, I, D = (torch.where(alive, a, b) for a, b in ((Mn, M), (In, I), (Dn, D)))
             N, B, J, C = (torch.where(alive, a, b) for a, b in ((Nn, N), (Bn, B), (Jn, J), (Cn, C)))
         out[pos] = (C + move)[:, 0]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the plain probability-space steps (kernels C, D, G and H)
+# ---------------------------------------------------------------------------
+
+def _affine_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Inclusive scan of ``d -> a*d + b`` along dim 1 (doubling, full depth)."""
+    width = a.shape[1]
+    shift = 1
+    while shift < width:
+        prev_a = torch.cat([torch.ones_like(a[:, :shift]), a[:, :-shift]], 1)
+        prev_b = torch.cat([torch.zeros_like(b[:, :shift]), b[:, :-shift]], 1)
+        b = prev_b * a + b
+        a = prev_a * a
+        shift *= 2
+    return b
+
+
+def _shift_right(a: torch.Tensor, fill, by: int = 1) -> torch.Tensor:
+    return torch.cat([torch.full_like(a[:, :by], fill), a[:, :-by]], 1)
+
+
+def _forward_step(M, I, D, N, B, J, C, e, tr, shifted_tdd, loop, move):
+    """One Forward step (probability space); returns the new states and their total."""
+    tmm, tim, tdm, tmi, tii, tmd, _tdd, bm = tr
+    col = torch.zeros_like(M[:, :1])
+    stay = M * tmm + I * tim + D * tdm
+    Mn = e * (torch.cat([col, stay[:, :-1]], 1) + B * bm)
+    In = M * tmi + I * tii
+    Dn = _affine_scan(shifted_tdd, torch.cat([col, (Mn * tmd)[:, :-1]], 1))
+    E = (Mn + Dn).sum(dim=1, keepdim=True)
+    Jn = J * loop + E * 0.5
+    Cn = C * loop + E * 0.5
+    Nn = N * loop
+    Bn = (Nn + Jn) * move
+    return Mn, In, Dn, Nn, Bn, Jn, Cn, E + Bn + Nn + Cn + 1e-30
+
+
+
+
+def _max_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Inclusive scan of ``d -> max(a*d, b)`` along dim 1 (doubling, full depth)."""
+    width = a.shape[1]
+    shift = 1
+    while shift < width:
+        prev_a = torch.cat([torch.ones_like(a[:, :shift]), a[:, :-shift]], 1)
+        prev_b = torch.cat([torch.zeros_like(b[:, :shift]), b[:, :-shift]], 1)
+        b = torch.maximum(prev_b * a, b)
+        a = prev_a * a
+        shift *= 2
+    return b
+
+
+def _viterbi_step(M, I, D, N, B, J, C, e, tr, shifted_tdd, loop, move):
+    """One Viterbi step in probability space (max-plus): :func:`_forward_step`
+    with sums taken as maxima and ``E`` the maximum of ``M`` alone."""
+    tmm, tim, tdm, tmi, tii, tmd, _tdd, bm = tr
+    col = torch.zeros_like(M[:, :1])
+    stay = torch.maximum(torch.maximum(M * tmm, I * tim), D * tdm)
+    Mn = e * torch.maximum(torch.cat([col, stay[:, :-1]], 1), B * bm)
+    In = torch.maximum(M * tmi, I * tii)
+    Dn = _max_scan(shifted_tdd, torch.cat([col, (Mn * tmd)[:, :-1]], 1))
+    E = Mn.amax(dim=1, keepdim=True)
+    Jn = torch.maximum(J * loop, E * 0.5)
+    Cn = torch.maximum(C * loop, E * 0.5)
+    Nn = N * loop
+    Bn = torch.maximum(Nn, Jn) * move
+    return Mn, In, Dn, Nn, Bn, Jn, Cn, E + Bn + Nn + Cn + 1e-30
+
+
+# ---------------------------------------------------------------------------
+# kernel H: dense all-pairs Forward / Viterbi scores
+# ---------------------------------------------------------------------------
+
+def dense_scores(pack: SeqPack, bank: TorchBank, *, viterbi: bool = False) -> torch.Tensor:
+    """Forward (or Viterbi) scores (nats) of every pair, ``[S, P]`` on the device.
+
+    The counterpart of ``ForwardKernel`` / ``ViterbiKernel`` through
+    ``Bucketed``: one launch per width class of the bank, every
+    sequence against every profile of the class.  The score is the TPU
+    kernel's ``log(C move + 1e-38) + ls`` as XLA computes it (the
+    kernel's interpret mode): 1e-38 is a float32 subnormal, which XLA
+    flushes to zero, and so is a subnormal ``C move``; an empty sequence
+    (``C = 0``) scores −inf.
+    """
+    if _kernel_device(pack, bank) == "cpu":
+        return dense_scores_plain(pack, bank, viterbi=viterbi)
+    _check_pack_bank(pack, bank, log_space=False)
+    out = torch.empty((pack.S, bank.P), dtype=torch.float32, device=bank.device)
+    if pack.S == 0:
+        return out
+    lib = _build.library()
+    with torch.cuda.device(bank.device):
+        stream = torch.cuda.current_stream(bank.device).cuda_stream
+        for width, idx in bank.classes:
+            _check(idx, torch.int32, "profile index", bank.device)
+            code = lib.gecco_dense_scores(
+                pack.xs.data_ptr(), pack.offsets.data_ptr(), pack.lens.data_ptr(),
+                pack.loops_exp.data_ptr(), pack.moves_exp.data_ptr(), pack.S,
+                bank.e_odds.data_ptr(), bank.trans.data_ptr(), idx.data_ptr(),
+                int(idx.numel()), bank.lengths.data_ptr(), bank.P, bank.Mp, width,
+                int(viterbi), out.data_ptr(), stream,
+            )
+            _build.check(code, "gecco_dense_scores")
+            _build.launches["dense_scores"] += 1
+    return out
+
+
+def dense_scores_plain(pack: SeqPack, bank: TorchBank, *, viterbi: bool = False) -> torch.Tensor:
+    """Plain PyTorch kernel H over ``[pairs, W]`` planes of at most ``_PLAIN_CELLS`` cells.
+
+    The recurrence of :func:`forward_pairs_plain` (or, with ``viterbi``,
+    its max-plus form with the exact prefix-max delete chain of
+    :func:`_max_scan`) over all sequences and each width class's
+    profiles, and the TPU kernel's score read after the last residue.
+    """
+    device = bank.device
+    out = torch.empty((pack.S, bank.P), dtype=torch.float32, device=device)
+    if pack.S == 0:
+        return out
+    step_fn = _viterbi_step if viterbi else _forward_step
+    xs_all = pack.padded()
+    lens_all = pack.lens.long()
+    seqs = torch.arange(pack.S, device=device)
+    for width, idx in bank.classes:
+        W = min(width, bank.Mp)
+        group = max(1, _PLAIN_CELLS // (pack.S * W))
+        for c0 in range(0, idx.numel(), group):
+            prof = idx[c0 : c0 + group].long()
+            Pc = prof.numel()
+            s = seqs.repeat_interleave(Pc)                     # row r: (s[r], p[r])
+            p = prof.repeat(pack.S)
+            R = s.numel()
+            tr = bank.trans[:, p, :W]
+            lens = lens_all[s]
+            loop = pack.loops_exp[s][:, None]
+            move = pack.moves_exp[s][:, None]
+            xs = xs_all[s]
+            zero = torch.zeros((R, W), dtype=torch.float32, device=device)
+            col = zero[:, :1]
+            shifted_tdd = _shift_right(tr[6], 0.0)
+            M, I, D = zero, zero, zero
+            N, B, J, C, ls = col + 1.0, move.clone(), col.clone(), col.clone(), col.clone()
+            for i in range(int(lens.max())):
+                alive = (i < lens)[:, None]
+                e = bank.e_odds[xs[:, i], p, :W]
+                Mn, In, Dn, Nn, Bn, Jn, Cn, total = step_fn(
+                    M, I, D, N, B, J, C, e, tr, shifted_tdd, loop, move)
+                inv = 1.0 / total
+                M, I, D, N, B, J, C = (
+                    torch.where(alive, new * inv, old)
+                    for new, old in ((Mn, M), (In, I), (Dn, D), (Nn, N), (Bn, B), (Jn, J),
+                                     (Cn, C)))
+                ls = torch.where(alive, ls + torch.log(total), ls)
+            c = C * move
+            score = torch.log(torch.where(c >= _FLT_MIN, c, 0.0)) + ls
+            out[:, prof] = score.view(pack.S, Pc)
     return out

@@ -34,13 +34,14 @@ from typing import Dict, List, Sequence, Tuple
 import numpy
 import torch
 
-from gecco_tpu.hmm import engine
-from gecco_tpu.hmm.engine import DomainHit, exp_surv
-from gecco_tpu.hmm.profile import length_model, null1_score
-from gecco_tpu.hmm.stream import _MAX_LPS, _N_ENVS, _N_REGIONS
-
+from . import engine
 from .bank import NEG, TorchBank
-from .kernels import SeqPack, _check, _kernel_device, launch_pairs, launch_rows, pair_groups
+from .engine import DomainHit, exp_surv
+from .kernels import (
+    SeqPack, _check, _forward_step, _kernel_device, _shift_right, launch_pairs, launch_rows,
+    pair_groups,
+)
+from .profile import length_model, null1_score
 
 __all__ = [
     "forward_pairs", "forward_pairs_plain",
@@ -52,6 +53,12 @@ __all__ = [
 LOG2 = math.log(2.0)
 TINY = 1e-38
 
+# as ``gecco_tpu.hmm.stream``
+_MAX_LPS = 4096   # streams beyond this fall back to the host engine
+#: fixed device slots: regions per pair, envelopes per region
+_N_REGIONS = 8
+_N_ENVS = 4
+
 
 def forward_pairs(pack: SeqPack, bank: TorchBank, seq_idx, prof_idx) -> torch.Tensor:
     """Forward scores (nats) of pairs ``(seq_idx[r], prof_idx[r])``, ``[n]``."""
@@ -59,19 +66,6 @@ def forward_pairs(pack: SeqPack, bank: TorchBank, seq_idx, prof_idx) -> torch.Te
         return forward_pairs_plain(pack, bank, seq_idx, prof_idx)
     return launch_pairs("gecco_forward_pairs", "forward_pairs", pack, bank,
                         seq_idx, prof_idx, log_space=False)
-
-
-def _affine_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Inclusive scan of ``d -> a*d + b`` along dim 1 (doubling, full depth)."""
-    width = a.shape[1]
-    shift = 1
-    while shift < width:
-        prev_a = torch.cat([torch.ones_like(a[:, :shift]), a[:, :-shift]], 1)
-        prev_b = torch.cat([torch.zeros_like(b[:, :shift]), b[:, :-shift]], 1)
-        b = prev_b * a + b
-        a = prev_a * a
-        shift *= 2
-    return b
 
 
 def _affine_scan_rev(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -87,28 +81,8 @@ def _affine_scan_rev(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return b
 
 
-def _shift_right(a: torch.Tensor, fill, by: int = 1) -> torch.Tensor:
-    return torch.cat([torch.full_like(a[:, :by], fill), a[:, :-by]], 1)
-
-
 def _shift_left(a: torch.Tensor) -> torch.Tensor:
     return torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], 1)
-
-
-def _forward_step(M, I, D, N, B, J, C, e, tr, shifted_tdd, loop, move):
-    """One Forward step (probability space); returns the new states and their total."""
-    tmm, tim, tdm, tmi, tii, tmd, _tdd, bm = tr
-    col = torch.zeros_like(M[:, :1])
-    stay = M * tmm + I * tim + D * tdm
-    Mn = e * (torch.cat([col, stay[:, :-1]], 1) + B * bm)
-    In = M * tmi + I * tii
-    Dn = _affine_scan(shifted_tdd, torch.cat([col, (Mn * tmd)[:, :-1]], 1))
-    E = (Mn + Dn).sum(dim=1, keepdim=True)
-    Jn = J * loop + E * 0.5
-    Cn = C * loop + E * 0.5
-    Nn = N * loop
-    Bn = (Nn + Jn) * move
-    return Mn, In, Dn, Nn, Bn, Jn, Cn, E + Bn + Nn + Cn + 1e-30
 
 
 def forward_pairs_plain(pack: SeqPack, bank: TorchBank, seq_idx, prof_idx,

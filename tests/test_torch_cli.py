@@ -1,4 +1,4 @@
-"""The port's ``run`` command against the JAX package's, and without JAX.
+"""The port's ``run`` command against the JAX package's, and without it.
 
 A small synthetic genome whose genes carry planted domains of a small
 calibrated bank (written as ``.h3m``, accessions taken from the embedded
@@ -142,15 +142,18 @@ def test_run_device_cuda_fails_without_card(inputs):
 
 
 def test_run_without_jax(inputs):
-    """With ``jax`` blocked, the port's CLI ``run`` completes on the CPU."""
+    """With ``jax`` and ``gecco_tpu`` blocked, the port's CLI ``run``
+    completes on the CPU and neither package is loaded."""
     script = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['gecco_tpu'] = None\n"
         "from gecco_tpu_torch.cli import main\n"
         f"code = main(['run', '-g', {str(inputs / 'genome.fna')!r}, "
         f"'--hmm', {str(inputs / 'bank.h3m')!r}, '-o', {str(inputs / 'nojax')!r}, "
         "'--device', 'cpu', '--force-tsv', '-j', '1'])\n"
-        "assert 'jax' not in [m.split('.')[0] for m, v in sys.modules.items() if v is not None]\n"
+        "loaded = {m.split('.')[0] for m, v in sys.modules.items() if v is not None}\n"
+        "assert not loaded & {'jax', 'gecco_tpu'}, loaded & {'jax', 'gecco_tpu'}\n"
         "sys.exit(code)\n"
     )
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")

@@ -1,9 +1,10 @@
 """The CUDA kernels against their plain versions — needs an NVIDIA card.
 
-Tolerances: max-plus kernels (A, B) 1e-4 nats; sum-product kernels and
-their log scales 1e-3 nats, trajectories and posteriors 1e-4 absolute
-(float32 sums in another order); bfloat16 planes within one bfloat16
-step; envelopes and alignment coordinates equal.
+Tolerances: max-plus kernels (A, B, H's Viterbi) 1e-4 nats; sum-product
+kernels (C-G, H's Forward) and their log scales 1e-3 nats, trajectories
+and posteriors 1e-4 absolute (float32 sums in another order); bfloat16
+planes within one bfloat16 step; envelopes and alignment coordinates
+equal.  Only the port is imported here.
 
 Marked ``cuda``; skipped (with the reason) where no card is present.
 On a machine with one: ``python -m pytest tests/test_torch_cuda.py -q``.
@@ -13,14 +14,13 @@ import numpy
 import pytest
 import torch
 
-from gecco_tpu.hmm import batch
-from gecco_tpu.hmm.synthetic import plant_domain, synthetic_profiles, synthetic_proteins
-
 from gecco_tpu_torch import _build
 from gecco_tpu_torch.hmm.bank import TorchBank
 from gecco_tpu_torch.hmm.kernels import (
-    SeqPack, ssv_filter, ssv_filter_plain, viterbi_pairs, viterbi_pairs_plain)
+    SeqPack, dense_scores, dense_scores_plain, ssv_filter, ssv_filter_plain, viterbi_pairs,
+    viterbi_pairs_plain)
 from gecco_tpu_torch.hmm.pipeline import SearchPipeline
+from gecco_tpu_torch.hmm.synthetic import plant_domain, synthetic_profiles, synthetic_proteins
 from gecco_tpu_torch.hmm.stream import (
     StreamDomains, align_bwd, align_bwd_plain, align_fwd, align_fwd_plain, envelopes,
     forward_pairs, forward_pairs_plain, posterior_bwd, posterior_bwd_plain, posterior_fwd,
@@ -48,8 +48,7 @@ def workload(device):
         gm = profiles[i % len(profiles)]
         seqs[i] = plant_domain(seqs[i], gm, rng, max_len=min(gm.M, 200), divergence=0.2)
     seqs.append(numpy.zeros(0, dtype=numpy.int32))
-    host = batch.ProfileBank.build(profiles)
-    bank = TorchBank.from_numpy(host, device)
+    bank = TorchBank.build(profiles, device)
     assert {1024, 2048, 4096} <= set(bank.class_of.tolist())
     return profiles, seqs, SeqPack(seqs, device), bank
 
@@ -76,10 +75,24 @@ def test_pair_kernels_match_plain(workload, kernel, plain, tol):
     torch.testing.assert_close(got, plain(pack, bank, s_idx, p_idx), atol=tol, rtol=0)
 
 
-def test_search_cuda_matches_torch(workload, device):
+@pytest.mark.parametrize("viterbi, tol", [(False, 1e-3), (True, 1e-4)])
+def test_dense_kernel_matches_plain(workload, viterbi, tol):
+    """Kernel H on every width class of the bank (128 to 4,096 nodes)."""
+    _profiles, _seqs, pack, bank = workload
+    before = _build.launches["dense_scores"]
+    got = dense_scores(pack, bank, viterbi=viterbi)
+    torch.cuda.synchronize()
+    assert _build.launches["dense_scores"] == before + len(bank.classes)
+    want = dense_scores_plain(pack, bank, viterbi=viterbi)
+    assert torch.isneginf(want[-1]).all()       # the empty sequence
+    torch.testing.assert_close(got, want, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("max_filter", [False, True])
+def test_search_cuda_matches_torch(workload, device, max_filter):
     profiles, seqs, _pack, _bank = workload
-    a = SearchPipeline(profiles, device=device, backend="cuda")
-    b = SearchPipeline(profiles, device=device, backend="torch")
+    a = SearchPipeline(profiles, device=device, backend="cuda", max_filter=max_filter)
+    b = SearchPipeline(profiles, device=device, backend="torch", max_filter=max_filter)
     hits_a, hits_b = a.search(seqs), b.search(seqs)
     assert a.stage_counts == b.stage_counts
     assert [(h.sequence_index, h.profile.name) for h in hits_a] == [

@@ -17,10 +17,16 @@ from gecco_tpu.hmm.synthetic import plant_domain, synthetic_profiles, synthetic_
 from gecco_tpu_torch.hmm.bank import NEG, TorchBank, width_class
 from gecco_tpu_torch.hmm.kernels import (
     SeqPack, flatten_pairs, pack_mask, ssv_filter, viterbi_pairs)
+from gecco_tpu_torch.hmm.profile import profiles_from_arrays
 from gecco_tpu_torch.hmm.stream import forward_pairs
 
 torch.set_num_threads(1)
 TOL = 5e-3
+
+
+def _port_bank(profiles):
+    """The port's bank of JAX profiles, built from their plain fields."""
+    return TorchBank.build(profiles_from_arrays([vars(gm.hmm) for gm in profiles]), "cpu")
 
 
 @pytest.fixture(scope="module")
@@ -39,8 +45,7 @@ def workload():
     cons = numpy.argmax(profiles[-1].hmm.match[1:, :20], axis=1).astype(numpy.int32)
     seqs.append(numpy.concatenate([rng.integers(0, 20, 3).astype(numpy.int32), cons]))
     assert any(len(x) % 4 for x in seqs)
-    host = batch.ProfileBank.build(profiles)
-    return profiles, seqs, host, TorchBank.from_numpy(host, "cpu")
+    return profiles, seqs, batch.ProfileBank.build(profiles), _port_bank(profiles)
 
 
 def test_width_classes():
@@ -110,7 +115,7 @@ def test_viterbi_pairs_wide_profile():
     seqs = [x[:70] for x in synthetic_proteins(2, mean_length=70, seed=11)]
     seqs[0] = plant_domain(seqs[0], profiles[0], rng, offset=2, max_len=60)
     host = batch.ProfileBank.build(profiles)
-    bank = TorchBank.from_numpy(host, "cpu")
+    bank = _port_bank(profiles)
     assert [w for w, _ in bank.classes] == [128, 4096]
     s_arr = numpy.array([0, 1, 0, 1])
     p_arr = numpy.array([0, 0, 1, 1])

@@ -9,8 +9,6 @@ hits and domain coordinates; sequence scores within 5e-3 bits, domain
 bit scores within 5e-2 (``tools/tpu_check.py``'s gates).
 """
 
-import copy
-
 import numpy
 import pytest
 import torch
@@ -21,8 +19,14 @@ from gecco_tpu.hmm.synthetic import plant_domain, synthetic_profiles, synthetic_
 
 from gecco_tpu_torch.hmm.calibrate import calibrate
 from gecco_tpu_torch.hmm.pipeline import SearchPipeline
+from gecco_tpu_torch.hmm.profile import profiles_from_arrays
 
 torch.set_num_threads(1)
+
+
+def _port(profiles):
+    """The port's copies of JAX profiles, from their plain fields."""
+    return profiles_from_arrays([vars(gm.hmm) for gm in profiles])
 
 
 @pytest.fixture(scope="module")
@@ -43,7 +47,7 @@ def multidomain():
         seqs[i] = x
     reference = JaxSearchPipeline(profiles, Z=6, domZ=6, backend="xla")
     hits = reference.search(seqs)
-    return profiles, seqs, hits, reference.stage_counts
+    return _port(profiles), seqs, hits, reference.stage_counts
 
 
 @pytest.mark.parametrize("backend", ["cuda", "torch"])
@@ -97,7 +101,7 @@ def test_cuda_device_raises_without_card():
 
 def test_calibrate_matches_jax_package():
     profiles = synthetic_profiles(4, min_length=30, max_length=150, seed=2)
-    mine = copy.deepcopy(profiles)
+    mine = _port(profiles)
     jax_calibrate(profiles, n=64, L=96, seed=1)
     calibrate(mine, device="cpu", n=64, L=96, seed=1)
     for a, b in zip(mine, profiles):

@@ -2,12 +2,13 @@
 
 import numpy
 
-from gecco_tpu.hmm.h3m import read_h3m
-from gecco_tpu.hmm.io import encode_sequence
-from gecco_tpu.orf.scan import ScanFinder
-from gecco_tpu.seq import Seq, SeqRecord
+from gecco_tpu.hmm.h3m import read_h3m as jax_read_h3m
 
+from gecco_tpu_torch.hmm.h3m import read_h3m
+from gecco_tpu_torch.hmm.io import encode_sequence
 from gecco_tpu_torch.hmm.synthetic import bench_workload, write_library
+from gecco_tpu_torch.orf.scan import ScanFinder
+from gecco_tpu_torch.seq import Seq, SeqRecord
 
 
 def test_bench_workload_plants_domains_in_the_genome():
@@ -28,5 +29,7 @@ def test_write_library_uses_whitelisted_accessions(tmp_path):
     write_library(path, profiles)
     back = list(read_h3m(path))
     assert [h.accession for h in back] == [gm.hmm.accession for gm in profiles]
+    # the JAX package reads the same library
+    assert [h.accession for h in jax_read_h3m(path)] == [h.accession for h in back]
     assert all(a.startswith("PF") for a in (h.accession for h in back))
     numpy.testing.assert_array_equal([h.M for h in back], [gm.M for gm in profiles])
