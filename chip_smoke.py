@@ -18,7 +18,12 @@ Phases (each prints its wall seconds, each ends in a device sync):
    them, and over the envelope rows those pairs yield (every class has
    rows); the dense kernel H in both semirings over 32 proteins against
    the whole bank (every width class, 128 to 4,096 nodes), and against
-   kernels C and B on the same pairs;
+   kernels C and B on the same pairs; the MSV kernel I on the first
+   bank (every MSV score at least the SSV score of its pair); kernel A on
+   two small banks of the widths the TPU's other SSV variants served,
+   profiles that fill their width class (128 and 256 nodes) and
+   profiles within three nodes of it (125-127), each protein with a
+   consensus ending on the last node;
 3. search: ``SearchPipeline(backend="cuda").search`` at the benchmark
    shape (a 3,230-gene synthetic genome, ~3,000 called proteins cut to
    512 residues with planted domains, 2,766 profiles calibrated by the
@@ -32,11 +37,18 @@ Phases (each prints its wall seconds, each ends in a device sync):
    counts, the candidates that reach domain definition, peak device
    memory, its hits against the default search's (a superset) and
    against the same search on plain PyTorch for the first proteins;
-5. CLI: ``gecco-tpu-torch run`` on the genome with the calibrated bank
+5. MSV search: ``SearchPipeline(filter_stage="msv", backend="cuda")``
+   (HMMER 3.0's multi-segment filter, kernel I, in place of kernel A)
+   over the same workload: its funnel (F1 at least the default's, since
+   no MSV score is below its SSV score), launch counts, peak device
+   memory, the same search on plain PyTorch for the first proteins, and
+   that comparison again with ``bias_filter=False`` (hmmsearch
+   ``--nobias``);
+6. CLI: ``gecco-tpu-torch run`` on the genome with the calibrated bank
    written as ``.h3m`` (accessions renamed to the embedded model's
    Pfam whitelist).
 
-The searches of phases 3 and 4 run under ``torch.profiler`` (device
+The searches of phases 3, 4 and 5 run under ``torch.profiler`` (device
 activity only), which gives each kernel's device milliseconds and the
 card's idle share of the search; the launch counts are set to 0 just
 before each search and read just after it.  The line before the last
@@ -50,6 +62,7 @@ must run without them.
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -69,22 +82,35 @@ DOMAIN_PROTEINS = 256
 DENSE_PROTEINS = 32
 #: the survivor funnel of the search through F3 (``stage_counts``)
 FUNNEL = {"pairs": 8339490, "F1": 417790, "F2": 31893, "F3": 1800}
+#: the same with ``filter_stage="msv"`` (measured on the H100)
+MSV_FUNNEL = {"pairs": 8339490, "F1": 417859, "F2": 31908, "F3": 1813}
+#: proteins of the searches held against the plain PyTorch search
+HEAD = 48
 #: absolute tolerances (nats, or probabilities): max-plus kernels are
 #: exact up to their order of maxima; sum-product kernels and their log
 #: scales sum in another order than the plain versions; trajectories,
 #: posteriors and null2 log-ratios likewise
-TOL = {"ssv_filter": 1e-4, "viterbi_pairs": 1e-4, "forward_pairs": 1e-3,
+TOL = {"ssv_filter": 1e-4, "msv_filter": 1e-4, "viterbi_pairs": 1e-4, "forward_pairs": 1e-3,
        "trajectory": 1e-4, "log_scale": 1e-3, "logn2": 1e-3,
        "dense_forward": 1e-3, "dense_viterbi": 1e-4}
 #: kernel H against kernels C and B (the same functions by other
 #: recurrences: per-pair blocks, and B in log space)
 CROSS_TOL = 5e-3
+#: how far an MSV score may fall below its SSV score: none in exact
+#: arithmetic, but MSV adds the length model's loop to C once a residue
+#: (up to 512 float32 additions) where SSV takes L * loop as one product
+#: (1.85e-4 nats measured on the H100, over 1e-4)
+MSV_SSV_TOL = 1e-3
 #: relative tolerance of the bfloat16 planes: one bfloat16 step (2^-7 of
 #: the value at the bottom of a binade), where float32 values that differ
 #: in their last bits round apart
 PLANE_RTOL = 2.0 ** -7
+#: source of each kernel and the TPU kernels it replaces; kernel A computes
+#: the function of all three SSV variants (4, 1 and 2 residues a roll)
 REPLACES = {
-    "ssv_filter": ("gecco_tpu_torch/csrc/ssv.cu", "gecco_tpu/hmm/kernels.py:643"),
+    "ssv_filter": ("gecco_tpu_torch/csrc/ssv.cu",
+                   "gecco_tpu/hmm/kernels.py:643, gecco_tpu/hmm/kernels.py:467, "
+                   "gecco_tpu/hmm/kernels.py:544"),
     "viterbi_pairs": ("gecco_tpu_torch/csrc/viterbi.cu", "gecco_tpu/hmm/kernels.py:1312"),
     "forward_pairs": ("gecco_tpu_torch/csrc/forward.cu", "gecco_tpu/hmm/stream.py:1047"),
     "posterior_fwd": ("gecco_tpu_torch/csrc/stream_fwd.cu", "gecco_tpu/hmm/stream.py:60"),
@@ -92,16 +118,20 @@ REPLACES = {
     "align_bwd": ("gecco_tpu_torch/csrc/align_bwd.cu", "gecco_tpu/hmm/stream.py:395"),
     "align_fwd": ("gecco_tpu_torch/csrc/align_fwd.cu", "gecco_tpu/hmm/stream.py:568"),
     "dense_scores": ("gecco_tpu_torch/csrc/dense.cu", "gecco_tpu/hmm/kernels.py:1051"),
+    "msv_filter": ("gecco_tpu_torch/csrc/msv.cu", "gecco_tpu/hmm/kernels.py:273"),
 }
 #: name of each wrapper's ``__global__`` function (templates add ``<W>``)
 GLOBALS = {"ssv_filter": "ssv_kernel", "viterbi_pairs": "viterbi_kernel",
            "forward_pairs": "forward_kernel", "posterior_fwd": "posterior_fwd_kernel",
            "posterior_bwd": "posterior_bwd_kernel", "align_bwd": "align_bwd_kernel",
-           "align_fwd": "align_fwd_kernel", "dense_scores": "dense_kernel"}
-#: the kernels of each search: the default path (phase 3) and max_filter (phase 4)
-DEFAULT_PATH = ("ssv_filter", "viterbi_pairs", "forward_pairs", "posterior_fwd",
-                "posterior_bwd", "align_bwd", "align_fwd")
-MAX_FILTER_PATH = ("dense_scores", "posterior_fwd", "posterior_bwd", "align_bwd", "align_fwd")
+           "align_fwd": "align_fwd_kernel", "dense_scores": "dense_kernel",
+           "msv_filter": "msv_kernel"}
+#: the kernels of each search: the default path (phase 3), max_filter
+#: (phase 4) and the MSV filter stage (phase 5)
+DOMAIN_PATH = ("posterior_fwd", "posterior_bwd", "align_bwd", "align_fwd")
+DEFAULT_PATH = ("ssv_filter", "viterbi_pairs", "forward_pairs", *DOMAIN_PATH)
+MAX_FILTER_PATH = ("dense_scores", *DOMAIN_PATH)
+MSV_PATH = ("msv_filter", "viterbi_pairs", "forward_pairs", *DOMAIN_PATH)
 #: the least time of a kernel's work (``bound_ms``): the larger of its float
 #: operations over the H100 SXM's float32 peak outside the tensor cores and
 #: its bytes (each input read once, each output written once) over the HBM
@@ -109,14 +139,15 @@ MAX_FILTER_PATH = ("dense_scores", "posterior_fwd", "posterior_bwd", "align_bwd"
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 #: float operations per DP cell (one residue against one node) of each
-#: recurrence: A = emission minus loop, entry max, add, running max; B = the
+#: recurrence: A = emission minus loop, entry max, add, running max; I =
+#: emission add, entry max, running max of E (its per-row scalars are O(L)); B = the
 #: max-plus M/I/D updates (11) and the prefix-max delete chain (3) and E (1);
 #: C, D and H's Forward = the sum-product updates (11), delete chain (3),
 #: E sum (2), rescale (3), H's Viterbi one fewer (E a max of M alone); E and
 #: F = the Backward step with its delete chain and rescale; G = the Forward
 #: and the envelope Forward (2 x 19), posteriors (6) and the optimal-accuracy
 #: DP (20)
-FLOPS_PER_CELL = {"ssv_filter": 4, "viterbi_pairs": 15, "forward_pairs": 19,
+FLOPS_PER_CELL = {"ssv_filter": 4, "msv_filter": 3, "viterbi_pairs": 15, "forward_pairs": 19,
                   "posterior_fwd": 19, "posterior_bwd": 24, "align_bwd": 24,
                   "align_fwd": 64, "dense_forward": 19, "dense_viterbi": 18}
 #: float32 planes a Forward/Backward kernel reads per node of a profile
@@ -175,6 +206,18 @@ def all_pairs_work(pack, lengths, per_cell, planes=PLANES):
     return cells * per_cell, nbytes
 
 
+def device_ms(prof):
+    """Device milliseconds of each kernel name in a ``torch.profiler`` run."""
+    out = {}
+    for event in prof.key_averages():
+        us = getattr(event, "self_device_time_total", None)
+        if us is None:
+            us = event.self_cuda_time_total
+        if us:
+            out[event.key] = us / 1e3
+    return out
+
+
 def timed_ms(fn, repeats):
     """Mean milliseconds of ``fn()`` on the card (CUDA events), after a warm-up."""
     result = fn()
@@ -193,7 +236,8 @@ def phase_kernels(device, report):
 
     from gecco_tpu_torch.hmm.bank import TorchBank
     from gecco_tpu_torch.hmm.kernels import (
-        SeqPack, ssv_filter, ssv_filter_plain, viterbi_pairs, viterbi_pairs_plain)
+        SeqPack, msv_filter, msv_filter_plain, ssv_filter, ssv_filter_plain, viterbi_pairs,
+        viterbi_pairs_plain)
     from gecco_tpu_torch.hmm.stream import forward_pairs, forward_pairs_plain
     from gecco_tpu_torch.hmm.synthetic import (
         pfam_shaped_profiles, synthetic_profiles, synthetic_proteins)
@@ -210,10 +254,27 @@ def phase_kernels(device, report):
           f"{[(w, int(i.numel())) for w, i in bank.classes]}; {len(seqs)} proteins, "
           f"{int(pack.lens_host.sum())} residues", flush=True)
 
-    got, ms = timed_ms(lambda: ssv_filter(pack, bank), 5)
+    ssv, ms = timed_ms(lambda: ssv_filter(pack, bank), 5)
     want, plain_ms = timed_ms(lambda: ssv_filter_plain(pack, bank), 1)
-    report("ssv_filter", [("ssv_filter", got, want)], ms, plain_ms,
+    report("ssv_filter", [("ssv_filter", ssv, want)], ms, plain_ms,
            all_pairs_work(pack, lengths, FLOPS_PER_CELL["ssv_filter"], planes=21))
+    phase_ssv_widths(device, report)
+
+    got, ms = timed_ms(lambda: msv_filter(pack, bank), 5)
+    want, plain_ms = timed_ms(lambda: msv_filter_plain(pack, bank), 1)
+    report("msv_filter", [("msv_filter", got, want)], ms, plain_ms,
+           all_pairs_work(pack, lengths, FLOPS_PER_CELL["msv_filter"], planes=21))
+    below = float((ssv - got).max())
+    print(f"# kernel msv_filter: largest SSV score above its MSV score {below!r} nats "
+          f"(tol {MSV_SSV_TOL})", flush=True)
+    require(below <= MSV_SSV_TOL, f"an MSV score is below its SSV score by {below}")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        msv_filter(pack, bank)
+        torch.cuda.synchronize()
+    per_class = {32 * int(re.search(r"msv_kernel<(\d+)>", key).group(1)): ms
+                 for key, ms in device_ms(prof).items() if "msv_kernel<" in key}
+    print(f"# kernel msv_filter per width class (profiler, device ms): "
+          f"{json.dumps(dict(sorted(per_class.items())))}", flush=True)
 
     # survivor-like pairs: every protein against random profiles, plus
     # every protein against the wide profile
@@ -232,6 +293,28 @@ def phase_kernels(device, report):
                pair_work(pack, lengths, s_idx, p_idx, FLOPS_PER_CELL[name], 4.0 * len(s_idx)))
     phase_dense_kernel(device, bank, seqs[:DENSE_PROTEINS], report)
     phase_domain_kernels(device, profiles, bank, report)
+
+
+def phase_ssv_widths(device, report):
+    """Kernel A on the widths the TPU's other SSV variants served: profiles
+    that fill their width class (``_pallas_ssv``'s lane-0 mask) and profiles
+    within three nodes of it (``_pallas_ssv_pair``), five proteins each
+    with the profile's consensus ending on its last node."""
+    from gecco_tpu_torch.hmm.bank import TorchBank
+    from gecco_tpu_torch.hmm.kernels import SeqPack, ssv_filter, ssv_filter_plain
+    from gecco_tpu_torch.hmm.synthetic import consensus_proteins, synthetic_profiles
+
+    for variant, node_counts in (("full_width", (128, 256)), ("near_cap", (125, 126, 127))):
+        profiles = [gm for seed, m in enumerate(node_counts)
+                    for gm in synthetic_profiles(1, min_length=m, max_length=m, seed=seed)]
+        seqs = [x for seed, gm in enumerate(profiles)
+                for x in consensus_proteins(gm, count=5, length=gm.M + 40, seed=seed)]
+        pack, bank = SeqPack(seqs, device), TorchBank.build(profiles, device)
+        got, ms = timed_ms(lambda: ssv_filter(pack, bank), 5)
+        want, plain_ms = timed_ms(lambda: ssv_filter_plain(pack, bank), 1)
+        report("ssv_filter", [("ssv_filter", got, want)], ms, plain_ms,
+               all_pairs_work(pack, bank.lengths.cpu().numpy(), FLOPS_PER_CELL["ssv_filter"],
+                              planes=21), variant=variant)
 
 
 def phase_dense_kernel(device, bank, seqs, report):
@@ -405,15 +488,9 @@ def profiled_search(pipeline, seqs, device, path):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     launches = dict(_build.launches)
-    device_ms = {}
-    for event in prof.key_averages():
-        us = getattr(event, "self_device_time_total", None)
-        if us is None:
-            us = event.self_cuda_time_total
-        if us:
-            device_ms[event.key] = us / 1e3
-    busy = sum(device_ms.values())
-    per_kernel = {name: sum(ms for key, ms in device_ms.items() if fn in key)
+    by_key = device_ms(prof)
+    busy = sum(by_key.values())
+    per_kernel = {name: sum(ms for key, ms in by_key.items() if fn in key)
                   for name, fn in GLOBALS.items()}
     print(f"# device ms (profiler) {json.dumps(per_kernel)}; all device work "
           f"{busy!r} ms of {seconds * 1e3!r} ms, idle share "
@@ -491,7 +568,7 @@ def phase_search(device, state):
     for stage, count in FUNNEL.items():
         require(pipeline.stage_counts.get(stage) == count,
                 f"funnel at {stage}: {pipeline.stage_counts.get(stage)} != {count}")
-    compare_with_plain(pipeline, profiles, seqs[:48], device)
+    compare_with_plain(pipeline, profiles, seqs[:HEAD], device)
     state.update(genome=genome, profiles=profiles, seqs=seqs, launches=launches,
                  hits={(h.sequence_index, h.profile.name) for h in hits})
 
@@ -521,8 +598,45 @@ def phase_max_filter(device, state):
                           FLOPS_PER_CELL["dense_forward"])
     print(f"# kernel dense_scores on the search: {json.dumps(bound(*work))} "
           f"({work[0]!r} flops, {work[1]!r} bytes)", flush=True)
-    compare_with_plain(pipeline, profiles, seqs[:48], device, max_filter=True)
+    compare_with_plain(pipeline, profiles, seqs[:HEAD], device, max_filter=True)
     state.update(max_launches=launches)
+
+
+def phase_msv_search(device, state):
+    """``filter_stage="msv"``: kernel I in place of kernel A, then the
+    default path's kernels; with and without the bias filter."""
+    from gecco_tpu_torch import _build
+    from gecco_tpu_torch.hmm.kernels import SeqPack
+    from gecco_tpu_torch.hmm.pipeline import SearchPipeline
+
+    profiles, seqs = state["profiles"], state["seqs"]
+    pipeline = SearchPipeline(profiles, device=device, Z=N_PROFILES, domZ=N_PROFILES,
+                              filter_stage="msv", backend="cuda")
+    hits, launches = profiled_search(pipeline, seqs, device, MSV_PATH)
+    counts = pipeline.stage_counts
+    require(launches["msv_filter"] == len(pipeline.bank.classes),
+            f"msv_filter made {launches['msv_filter']} launches, not one per width class")
+    require(launches["ssv_filter"] == 0, "the MSV search launched the SSV kernel")
+    require(counts["pairs"] == FUNNEL["pairs"] and counts["F1"] >= FUNNEL["F1"],
+            f"MSV funnel {counts}: F1 below the SSV search's {FUNNEL['F1']}")
+    for stage, count in MSV_FUNNEL.items():
+        require(counts.get(stage) == count,
+                f"MSV funnel at {stage}: {counts.get(stage)} != {count}")
+    got = {(h.sequence_index, h.profile.name) for h in hits}
+    print(f"# msv: {len(got)} hits, {len(got & state['hits'])} of them in the default "
+          f"search's {len(state['hits'])}", flush=True)
+    work = all_pairs_work(SeqPack(seqs, device), pipeline.bank.lengths.cpu().numpy(),
+                          FLOPS_PER_CELL["msv_filter"], planes=21)
+    print(f"# kernel msv_filter on the search: {json.dumps(bound(*work))} "
+          f"({work[0]!r} flops, {work[1]!r} bytes)", flush=True)
+    compare_with_plain(pipeline, profiles, seqs[:HEAD], device, filter_stage="msv")
+    nobias = SearchPipeline(profiles, device=device, Z=N_PROFILES, domZ=N_PROFILES,
+                            filter_stage="msv", bias_filter=False, backend="cuda")
+    _build.reset_launches()
+    compare_with_plain(nobias, profiles, seqs[:HEAD], device, filter_stage="msv",
+                       bias_filter=False)
+    require(_build.launches["msv_filter"] > 0, "the MSV search without bias skipped kernel I")
+    state.update(msv_launches=launches)
 
 
 def phase_cli(device, state):
@@ -563,14 +677,15 @@ def main():
     kernels = {}
     state = {}
 
-    def report(name, checks, ms, plain_ms, work, **extra):
+    def report(name, checks, ms, plain_ms, work, variant=None, **extra):
         """Hold a kernel's outputs against its plain version's: ``checks`` are
         ``(tolerance key, got, want)``.  ``max_abs_err`` covers the outputs
         held to an absolute tolerance; the bfloat16 planes are held to
         ``|got - want| <= 1e-30 + PLANE_RTOL |want|`` and give ``max_rel_err``.
         ``work`` is the ``(flops, bytes)`` of the timed launches, whose bound
         goes beside ``ms``; no single PyTorch call computes these
-        recurrences, so ``library_ms`` is null."""
+        recurrences, so ``library_ms`` is null.  A ``variant`` (another bank
+        for the same kernel) goes under the kernel's ``variants``."""
         entry = {"max_abs_err": 0.0}
         for key, got, want in checks:
             got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
@@ -589,10 +704,14 @@ def main():
             entry["max_abs_err"] = max(entry["max_abs_err"], e)
         tols = sorted({TOL[key] for key, *_rest in checks if key in TOL})
         entry.update(ms=ms, plain_ms=plain_ms, **bound(*work), library_ms=None, **extra)
-        print(f"# kernel {name}: {json.dumps(entry)} (abs tol {tols}"
+        label = name if variant is None else f"{name} ({variant} bank)"
+        print(f"# kernel {label}: {json.dumps(entry)} (abs tol {tols}"
               + (f", planes rel tol {PLANE_RTOL}" if "max_rel_err" in entry else "")
               + f"; {work[0]!r} flops, {work[1]!r} bytes)", flush=True)
-        kernels[name] = entry
+        if variant is None:
+            kernels[name] = entry
+        else:
+            kernels.setdefault(name, {}).setdefault("variants", {})[variant] = entry
 
     with Phase("1 device"):
         smi = subprocess.run(
@@ -612,14 +731,17 @@ def main():
         phase_search(device, state)
     with Phase("4 max-filter search"):
         phase_max_filter(device, state)
-    with Phase("5 cli"):
+    with Phase("5 msv search"):
+        phase_msv_search(device, state)
+    with Phase("6 cli"):
         phase_cli(device, state)
 
     loaded = sorted(name for name, module in sys.modules.items()
                     if module is not None and name.split(".")[0] in ("jax", "gecco_tpu"))
     require(not loaded, f"JAX or the JAX package was imported: {loaded}")
     # each kernel's launches on the search whose path it is
-    launches = {**state["launches"], "dense_scores": state["max_launches"]["dense_scores"]}
+    launches = {**state["launches"], "dense_scores": state["max_launches"]["dense_scores"],
+                "msv_filter": state["msv_launches"]["msv_filter"]}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": REPLACES[name][0],
          "replaces": REPLACES[name][1], "launches": launches[name], **kernels[name]}

@@ -35,7 +35,7 @@ FLAGS = [
 launches: Dict[str, int] = {
     "ssv_filter": 0, "viterbi_pairs": 0, "forward_pairs": 0,
     "posterior_fwd": 0, "posterior_bwd": 0, "align_bwd": 0, "align_fwd": 0,
-    "dense_scores": 0,
+    "dense_scores": 0, "msv_filter": 0,
 }
 
 _P = ctypes.c_void_p
@@ -44,6 +44,7 @@ _SIGNATURES = {
     # xs, offsets, lens, loops, moves, n_seqs, e_log, tbm, prof_idx,
     # n_prof, model_len, P, Mp, width, out, stream
     "gecco_ssv_filter": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P],
+    "gecco_msv_filter": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P],
     # xs, offsets, lens, loops, moves, pair_seq, pair_prof, n_pairs,
     # e, trans, model_len, P, Mp, width, out, stream
     "gecco_viterbi_pairs": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P],

@@ -1,15 +1,21 @@
-"""Sequence pack, SSV filter (kernel A), Viterbi pair scores (kernel B)
-and dense all-pairs scores (kernel H).
+"""Sequence pack, the F1 filters (kernels A and I), Viterbi pair scores
+(kernel B) and dense all-pairs scores (kernel H).
 
 Counterparts in ``gecco_tpu.hmm.kernels``:
 
 * :class:`SeqPack` — ``SeqPack``: every residue uploaded once per
   search, here as one flat ``int8`` tensor with offsets, so a sequence
   of any length needs no padded row;
-* :func:`ssv_filter` — ``SSVKernel.scores_packed`` through
-  ``Bucketed``: SSV scores of all (sequence, profile) pairs;
+* :func:`ssv_filter` — ``SSVKernel.scores_packed`` and ``__call__``
+  through ``Bucketed`` (``_pallas_ssv_quad``, ``_pallas_ssv`` and
+  ``_pallas_ssv_pair``, one function): SSV scores of all (sequence,
+  profile) pairs, the default F1 filter;
+* :func:`msv_filter` — ``MSVKernel.scores_packed`` through ``Bucketed``
+  (``_pallas_msv``): MSV scores of all pairs, the F1 filter of
+  ``filter_stage="msv"`` (HMMER 3.0's multi-segment filter);
 * :func:`pack_mask` — ``_jit_pack_mask`` in ``Bucketed.masks``: the F1
-  Gumbel threshold with the composition-bias null, as plain torch;
+  Gumbel threshold, with or without the composition-bias null, as plain
+  torch;
 * :func:`viterbi_pairs` — ``PairForwardKernel.call_packed`` through
   ``PairBucketed.flat_packed`` (log-space Viterbi): scores of listed
   pairs for the F2 gate;
@@ -38,7 +44,7 @@ from .bank import NEG, TorchBank
 from .profile import length_model, null1_score
 
 __all__ = [
-    "SeqPack", "ssv_filter", "ssv_filter_plain", "pack_mask",
+    "SeqPack", "ssv_filter", "ssv_filter_plain", "msv_filter", "msv_filter_plain", "pack_mask",
     "viterbi_pairs", "viterbi_pairs_plain", "flatten_pairs",
     "dense_scores", "dense_scores_plain",
 ]
@@ -145,33 +151,38 @@ def _kernel_device(pack: SeqPack, bank: TorchBank) -> str:
 
 
 # ---------------------------------------------------------------------------
-# kernel A: SSV filter
+# kernels A and I: the F1 filters over every pair
 # ---------------------------------------------------------------------------
 
-def ssv_filter(pack: SeqPack, bank: TorchBank) -> torch.Tensor:
-    """SSV filter scores (nats) of every pair, ``[S, P]`` on the device."""
-    if _kernel_device(pack, bank) == "cpu":
-        return ssv_filter_plain(pack, bank)
+def _launch_filter(fn_name: str, counter: str, pack: SeqPack, bank: TorchBank) -> torch.Tensor:
+    """Launch filter kernel ``fn_name`` once per width class: ``[S, P]`` nats."""
     _check_pack_bank(pack, bank, log_space=True)
     _check(bank.tbm_log, torch.float32, "tbm", bank.device)
     out = torch.empty((pack.S, bank.P), dtype=torch.float32, device=bank.device)
     if pack.S == 0:
         return out
-    lib = _build.library()
+    fn = getattr(_build.library(), fn_name)
     with torch.cuda.device(bank.device):
         stream = torch.cuda.current_stream(bank.device).cuda_stream
         for width, idx in bank.classes:
             _check(idx, torch.int32, "profile index", bank.device)
-            code = lib.gecco_ssv_filter(
+            code = fn(
                 pack.xs.data_ptr(), pack.offsets.data_ptr(), pack.lens.data_ptr(),
                 pack.loops_log.data_ptr(), pack.moves_log.data_ptr(), pack.S,
                 bank.e_log.data_ptr(), bank.tbm_log.data_ptr(), idx.data_ptr(),
                 int(idx.numel()), bank.lengths.data_ptr(), bank.P, bank.Mp, width,
                 out.data_ptr(), stream,
             )
-            _build.check(code, "gecco_ssv_filter")
-            _build.launches["ssv_filter"] += 1
+            _build.check(code, fn_name)
+            _build.launches[counter] += 1
     return out
+
+
+def ssv_filter(pack: SeqPack, bank: TorchBank) -> torch.Tensor:
+    """SSV filter scores (nats) of every pair, ``[S, P]`` on the device."""
+    if _kernel_device(pack, bank) == "cpu":
+        return ssv_filter_plain(pack, bank)
+    return _launch_filter("gecco_ssv_filter", "ssv_filter", pack, bank)
 
 
 def ssv_filter_plain(pack: SeqPack, bank: TorchBank) -> torch.Tensor:
@@ -203,14 +214,70 @@ def ssv_filter_plain(pack: SeqPack, bank: TorchBank) -> torch.Tensor:
     return out
 
 
+def msv_filter(pack: SeqPack, bank: TorchBank) -> torch.Tensor:
+    """MSV filter scores (nats) of every pair, ``[S, P]`` on the device."""
+    if _kernel_device(pack, bank) == "cpu":
+        return msv_filter_plain(pack, bank)
+    return _launch_filter("gecco_msv_filter", "msv_filter", pack, bank)
+
+
+def msv_filter_plain(pack: SeqPack, bank: TorchBank) -> torch.Tensor:
+    """Plain PyTorch MSV filter: the recurrence over ``[S, P, W]`` planes.
+
+    The TPU kernel's log-space max-plus form, in its order of additions::
+
+        Mn = e + max(shift(M), B + tbm)      # shift: node k-1, NEG into node 0
+        E  = max_k Mn;  J = max(J + loop, E + log 1/2);  C likewise
+        N  = N + loop;  B = max(N, J) + move
+        score = C + move                     # after the last residue
+
+    from ``M = NEG, N = 0, B = move, J = C = NEG``; an empty sequence
+    scores ``NEG``.
+    """
+    device = bank.device
+    out = torch.full((pack.S, bank.P), NEG, dtype=torch.float32, device=device)
+    if pack.S == 0:
+        return out
+    xs = pack.padded()
+    lens = pack.lens.long()
+    loop = pack.loops_log[:, None]
+    move = pack.moves_log[:, None]
+    for width, idx in bank.classes:
+        W = min(width, bank.Mp)
+        prof = idx.long()
+        e = bank.e_log[:, prof, :W]                                  # [21, Pc, W]
+        tbm = bank.tbm_log[prof][None, :]
+        shape = (pack.S, len(prof))
+        M = torch.full((*shape, W), NEG, dtype=torch.float32, device=device)
+        first = M[..., :1].clone()
+        N = torch.zeros((pack.S, 1), dtype=torch.float32, device=device)
+        B = move.expand(shape).clone()
+        J = torch.full(shape, NEG, dtype=torch.float32, device=device)
+        C = J.clone()
+        for i in range(xs.shape[1]):
+            alive = (i < lens)[:, None]
+            shifted = torch.cat([first, M[..., :-1]], dim=2)
+            Mn = e[xs[:, i]] + torch.maximum(shifted, (B + tbm)[..., None])
+            Elm = Mn.amax(dim=2) + LOG_HALF
+            Jn = torch.maximum(J + loop, Elm)
+            Cn = torch.maximum(C + loop, Elm)
+            Nn = N + loop
+            Bn = torch.maximum(Nn, Jn) + move
+            M = torch.where(alive[..., None], Mn, M)
+            N, B, J, C = (torch.where(alive, a, b) for a, b in ((Nn, N), (Bn, B), (Jn, J), (Cn, C)))
+        out[:, prof] = C + move
+    out[lens == 0] = NEG
+    return out
+
+
 def pack_mask(scores: torch.Tensor, pack: SeqPack, bank: TorchBank,
-              F1: float) -> "numpy.ndarray":
+              F1: float, bias: bool = True) -> "numpy.ndarray":
     """F1 survivor matrix ``[S, P]`` (bool, host) from filter scores.
 
     ``pv <= F1`` rewritten as a per-pair score threshold (the Gumbel
-    survival is monotone), against the null-1 score plus the composition
-    filter null clipped at >= 0 — as ``gecco_tpu.hmm.kernels.Bucketed.masks``
-    with ``bias=True``.
+    survival is monotone), against the null-1 score plus, with ``bias``,
+    the composition filter null clipped at >= 0 — as
+    ``gecco_tpu.hmm.kernels.Bucketed.masks``.
     """
     if F1 < 1e-13:  # below the exact branch's resolution: tail form
         y_thr = -math.log(F1)
@@ -218,9 +285,11 @@ def pack_mask(scores: torch.Tensor, pack: SeqPack, bank: TorchBank,
         y_thr = -math.log(-math.log1p(-F1))
     host = bank.host
     thr = LOG2 * (host.msv_mu + y_thr / host.msv_lambda)
-    delta = pack.counts @ bank.logratio
-    null = pack.nullsc[:, None] + torch.clamp(
-        torch.logaddexp(torch.zeros_like(delta), delta) - LOG2, min=0.0)
+    null = pack.nullsc[:, None]
+    if bias:
+        delta = pack.counts @ bank.logratio
+        null = null + torch.clamp(
+            torch.logaddexp(torch.zeros_like(delta), delta) - LOG2, min=0.0)
     keep = scores >= null + torch.as_tensor(thr, device=bank.device)[None, :]
     return keep.cpu().numpy()
 

@@ -3,8 +3,11 @@
 Port of ``gecco_tpu.hmm.pipeline.SearchPipeline.search`` (single
 device), with the stages of hmmsearch:
 
-1. **SSV filter** of all (sequence, profile) pairs, Gumbel P-value
-   threshold ``F1`` with the composition-bias null (kernel A);
+1. **F1 filter** of all (sequence, profile) pairs, Gumbel P-value
+   threshold ``F1`` with the composition-bias null: the single-segment
+   SSV filter (kernel A) by default, as HMMER >= 3.1, or with
+   ``filter_stage="msv"`` HMMER 3.0's multi-segment MSV filter with the
+   J loop (kernel I); both are thresholded with the MSV calibration;
 2. **Viterbi F2 gate** of the filter survivors (kernel B);
 3. **Forward** rescore of the F2 survivors, exponential-tail threshold
    ``F3`` (kernel C);
@@ -16,6 +19,8 @@ device), with the stages of hmmsearch:
    overflow or whose sequence exceeds 4,096 residues; ``host_pairs``
    counts them.
 
+``bias_filter=False`` (hmmsearch ``--nobias``) drops the
+composition-bias null from the F1, F2 and F3 gates (plain null1).
 With ``max_filter=True`` (hmmsearch ``--max``) stages 1 and 2 and the
 composition-bias filter are skipped: every pair is Forward-scored by
 the dense all-pairs kernel H (:func:`~.kernels.dense_scores`) and the
@@ -41,8 +46,8 @@ from .._device import resolve_device
 from .bank import ProfileBank, TorchBank, bias_logratio
 from .engine import DomainHit
 from .kernels import (
-    SeqPack, dense_scores, dense_scores_plain, flatten_pairs, pack_mask, ssv_filter,
-    ssv_filter_plain, viterbi_pairs, viterbi_pairs_plain,
+    SeqPack, dense_scores, dense_scores_plain, flatten_pairs, msv_filter, msv_filter_plain,
+    pack_mask, ssv_filter, ssv_filter_plain, viterbi_pairs, viterbi_pairs_plain,
 )
 from .profile import SearchProfile, null1_score
 from .stream import StreamDomains, forward_pairs, forward_pairs_plain
@@ -86,8 +91,10 @@ class SequenceHit:
     domains: List[DomainHit] = field(default_factory=list)
 
 _SCORERS = {
-    "cuda": (ssv_filter, viterbi_pairs, forward_pairs, dense_scores),
-    "torch": (ssv_filter_plain, viterbi_pairs_plain, forward_pairs_plain, dense_scores_plain),
+    "cuda": {"ssv": ssv_filter, "msv": msv_filter, "viterbi": viterbi_pairs,
+             "forward": forward_pairs, "dense": dense_scores},
+    "torch": {"ssv": ssv_filter_plain, "msv": msv_filter_plain, "viterbi": viterbi_pairs_plain,
+              "forward": forward_pairs_plain, "dense": dense_scores_plain},
 }
 
 
@@ -109,11 +116,15 @@ class SearchPipeline:
         bit_cutoffs: Optional[str] = None,
         max_filter: bool = False,
         backend: str = "cuda",
+        filter_stage: str = "ssv",
+        bias_filter: bool = True,
     ) -> None:
         if bit_cutoffs not in (None, "gathering", "noise", "trusted"):
             raise ValueError(f"invalid bit cutoffs: {bit_cutoffs!r}")
         if backend not in _SCORERS:
             raise ValueError(f"invalid backend: {backend!r}")
+        if filter_stage not in ("ssv", "msv"):
+            raise ValueError(f"invalid filter stage: {filter_stage!r}")
         self.profiles = list(profiles)
         self.device = resolve_device(device)
         self.Z = Z
@@ -126,6 +137,9 @@ class SearchPipeline:
         self.bit_cutoffs = bit_cutoffs
         self.max_filter = max_filter  # True = skip filters (hmmsearch --max)
         self.backend = backend
+        self.filter_stage = filter_stage
+        # composition-bias null of the F1/F2/F3 gates (off: hmmsearch --nobias)
+        self.bias_filter = bias_filter
         self.stage_counts: Dict[str, int] = {}
         self.stage_seconds: Dict[str, float] = {}
         self.stage_cells: Dict[str, float] = {}
@@ -259,31 +273,35 @@ class SearchPipeline:
         self.stage_cells.update(filter=0.0, viterbi=0.0)
         t_stage = time.perf_counter()
         self.stage_cells["forward"] = float(lengths.sum() * model_lengths.sum())
-        dense = _SCORERS[self.backend][3]
+        dense = _SCORERS[self.backend]["dense"]
         vals = dense(pack, bank).cpu().numpy().astype(numpy.float64)
         self.stage_seconds["forward"] = time.perf_counter() - t_stage
         return vals, None, None, None
 
     def _score_filtered(self, pack, bank, lengths, nullsc, model_lengths):
-        """Stages 1 to 2: the SSV filter, the Viterbi F2 gate and the
-        Forward rescore of its survivors.  Returns ``(scores, sequences,
-        profiles, bias extras in bits)`` of the F2 survivors, or None
-        when none survive."""
-        ssv, viterbi, forward, _dense = _SCORERS[self.backend]
+        """Stages 1 to 2: the SSV or MSV filter, the Viterbi F2 gate and
+        the Forward rescore of its survivors.  Returns ``(scores,
+        sequences, profiles, bias extras in bits)`` of the F2 survivors,
+        or None when none survive."""
+        scorers = _SCORERS[self.backend]
         host = self._bank
 
         # composition bias filter null of the F1/F2/F3 gates, like
         # hmmsearch; reported scores and E-values stay null1-based
-        if self._logratio is None:
-            self._logratio = bias_logratio(host).astype(numpy.float64)
-        counts = pack.counts_host.astype(numpy.float64)
-        extra_mx = None
-        if pack.S * host.P <= 64_000_000:
-            extra_mx = numpy.maximum(numpy.logaddexp(
-                0.0, counts @ self._logratio) - LOG2, 0.0)
+        counts = extra_mx = None
+        if self.bias_filter:
+            if self._logratio is None:
+                self._logratio = bias_logratio(host).astype(numpy.float64)
+            counts = pack.counts_host.astype(numpy.float64)
+            if pack.S * host.P <= 64_000_000:
+                extra_mx = numpy.maximum(numpy.logaddexp(
+                    0.0, counts @ self._logratio) - LOG2, 0.0)
 
         def filter_extra(s_arr, p_arr):
-            """``filtersc - nullsc`` (nats) per pair, clipped at >= 0."""
+            """``filtersc - nullsc`` (nats) per pair, clipped at >= 0; 0
+            without the bias filter."""
+            if not self.bias_filter:
+                return numpy.zeros(len(s_arr))
             if extra_mx is not None:
                 return extra_mx[s_arr, p_arr]
             delta = numpy.einsum(
@@ -295,9 +313,10 @@ class SearchPipeline:
                 lengths[i] * model_lengths[profs].sum() for i, profs in surv.items()
             ))
 
-        # ---- stage 1: SSV filter of all pairs
+        # ---- stage 1: SSV or MSV filter of all pairs
         t_stage = time.perf_counter()
-        keep = pack_mask(ssv(pack, bank), pack, bank, self.F1)
+        scores = scorers[self.filter_stage](pack, bank)
+        keep = pack_mask(scores, pack, bank, self.F1, bias=self.bias_filter)
         surviving: Dict[int, List[int]] = {}
         for i in range(pack.S):
             kept = numpy.nonzero(keep[i])[0].tolist()
@@ -315,7 +334,7 @@ class SearchPipeline:
         self.stage_cells["viterbi"] = pair_cells(surviving)
         if surviving:
             s_arr, p_arr = flatten_pairs(surviving)
-            v_arr = viterbi(pack, bank, s_arr, p_arr).cpu().numpy()
+            v_arr = scorers["viterbi"](pack, bank, s_arr, p_arr).cpu().numpy()
             bits = (v_arr.astype(numpy.float64) - nullsc[s_arr]) / LOG2
             bits -= filter_extra(s_arr, p_arr) / LOG2
             pv = _gumbel_surv_vec(host.vit_lambda[p_arr] * (bits - host.vit_mu[p_arr]))
@@ -332,6 +351,6 @@ class SearchPipeline:
         if not surviving:
             return None
         s_arr, p_arr = flatten_pairs(surviving)
-        vals = forward(pack, bank, s_arr, p_arr).cpu().numpy().astype(numpy.float64)
+        vals = scorers["forward"](pack, bank, s_arr, p_arr).cpu().numpy().astype(numpy.float64)
         self.stage_seconds["forward"] = time.perf_counter() - t_stage
         return vals, s_arr, p_arr, filter_extra(s_arr, p_arr) / LOG2

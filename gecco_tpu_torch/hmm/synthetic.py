@@ -9,7 +9,10 @@ Pfam-like length distribution, which exercise exactly the same kernels.
 
 Added here: the benchmark workload of ``bench.py:238-256`` — a synthetic
 genome, its called proteins cut to 512 residues, three in four with a
-planted domain from a Pfam-shaped bank.  :func:`bench_workload` also
+planted domain from a Pfam-shaped bank.  :func:`consensus_proteins`
+plants a profile's whole consensus, ending on its last node, at
+several offsets (a filter's best segment then ends on the last node at
+every residue phase).  :func:`bench_workload` also
 writes the planted residues back into the genome's codons, so a CLI run
 on the genome searches the same proteins; :func:`write_library` writes
 a bank as ``.h3m`` under accessions the embedded classifier keeps.
@@ -28,7 +31,7 @@ from .io import AMINO_ALPHABET, BACKGROUND_F, ProfileHMM, encode_sequence
 from .profile import SearchProfile, configure_local
 
 __all__ = [
-    "bench_workload", "pfam_shaped_lengths", "pfam_shaped_profiles", "plant_domain",
+    "bench_workload", "consensus_proteins", "pfam_shaped_lengths", "pfam_shaped_profiles", "plant_domain",
     "synthetic_genome", "synthetic_profiles", "synthetic_proteins", "write_library",
 ]
 
@@ -118,6 +121,20 @@ def plant_domain(
     out = x.copy()
     out[offset : offset + n] = emitted[:n]
     return out
+
+
+def consensus_proteins(gm: SearchProfile, count: int = 5, length: int = 200,
+                       seed: int = 0) -> List["numpy.ndarray"]:
+    """``count`` random proteins of ``length`` residues, the ``s``-th with
+    the profile's consensus (most likely match residues) at offset ``s``."""
+    rng = numpy.random.default_rng(seed)
+    cons = numpy.argmax(gm.hmm.match[1:, :20], axis=1).astype(numpy.int32)
+    xs = []
+    for off in range(count):
+        x = rng.integers(0, 20, length).astype(numpy.int32)
+        x[off : off + len(cons)] = cons
+        xs.append(x)
+    return xs
 
 
 def pfam_shaped_lengths(count: int, seed: int = 0) -> "numpy.ndarray":

@@ -1,6 +1,6 @@
 """The CUDA kernels against their plain versions — needs an NVIDIA card.
 
-Tolerances: max-plus kernels (A, B, H's Viterbi) 1e-4 nats; sum-product
+Tolerances: max-plus kernels (A, B, H's Viterbi, I) 1e-4 nats; sum-product
 kernels (C-G, H's Forward) and their log scales 1e-3 nats, trajectories
 and posteriors 1e-4 absolute (float32 sums in another order); bfloat16
 planes within one bfloat16 step; envelopes and alignment coordinates
@@ -17,10 +17,11 @@ import torch
 from gecco_tpu_torch import _build
 from gecco_tpu_torch.hmm.bank import TorchBank
 from gecco_tpu_torch.hmm.kernels import (
-    SeqPack, dense_scores, dense_scores_plain, ssv_filter, ssv_filter_plain, viterbi_pairs,
-    viterbi_pairs_plain)
+    SeqPack, dense_scores, dense_scores_plain, msv_filter, msv_filter_plain, ssv_filter,
+    ssv_filter_plain, viterbi_pairs, viterbi_pairs_plain)
 from gecco_tpu_torch.hmm.pipeline import SearchPipeline
-from gecco_tpu_torch.hmm.synthetic import plant_domain, synthetic_profiles, synthetic_proteins
+from gecco_tpu_torch.hmm.synthetic import (
+    consensus_proteins, plant_domain, synthetic_profiles, synthetic_proteins)
 from gecco_tpu_torch.hmm.stream import (
     StreamDomains, align_bwd, align_bwd_plain, align_fwd, align_fwd_plain, envelopes,
     forward_pairs, forward_pairs_plain, posterior_bwd, posterior_bwd_plain, posterior_fwd,
@@ -62,6 +63,34 @@ def test_ssv_kernel_matches_plain(workload):
     torch.testing.assert_close(got, ssv_filter_plain(pack, bank), atol=1e-4, rtol=0)
 
 
+@pytest.mark.parametrize("lengths", [(128, 256), (125, 126, 127)],
+                         ids=["full-width", "near-cap"])
+def test_ssv_kernel_full_width_and_near_cap(device, lengths):
+    """Kernel A on the banks the TPU served with its other SSV variants:
+    profiles that fill their width class (``_pallas_ssv``'s lane-0 mask)
+    and profiles within three nodes of it (``_pallas_ssv_pair``), each
+    protein with a consensus ending on the last node."""
+    profiles = [gm for seed, m in enumerate(lengths)
+                for gm in synthetic_profiles(1, min_length=m, max_length=m, seed=seed)]
+    seqs = [x for seed, gm in enumerate(profiles)
+            for x in consensus_proteins(gm, count=5, length=gm.M + 40, seed=seed)]
+    pack, bank = SeqPack(seqs, device), TorchBank.build(profiles, device)
+    got = ssv_filter(pack, bank)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ssv_filter_plain(pack, bank), atol=1e-4, rtol=0)
+
+
+def test_msv_kernel_matches_plain(workload):
+    """Kernel I on every width class of the bank (128 to 4,096 nodes)."""
+    _profiles, _seqs, pack, bank = workload
+    before = _build.launches["msv_filter"]
+    got = msv_filter(pack, bank)
+    torch.cuda.synchronize()
+    assert _build.launches["msv_filter"] == before + len(bank.classes)
+    torch.testing.assert_close(got, msv_filter_plain(pack, bank), atol=1e-4, rtol=0)
+    assert (got >= ssv_filter(pack, bank) - 1e-4).all()
+
+
 @pytest.mark.parametrize("kernel, plain, tol", [
     (viterbi_pairs, viterbi_pairs_plain, 1e-4),
     (forward_pairs, forward_pairs_plain, 1e-3),
@@ -94,6 +123,19 @@ def test_search_cuda_matches_torch(workload, device, max_filter):
     a = SearchPipeline(profiles, device=device, backend="cuda", max_filter=max_filter)
     b = SearchPipeline(profiles, device=device, backend="torch", max_filter=max_filter)
     hits_a, hits_b = a.search(seqs), b.search(seqs)
+    assert a.stage_counts == b.stage_counts
+    assert [(h.sequence_index, h.profile.name) for h in hits_a] == [
+        (h.sequence_index, h.profile.name) for h in hits_b]
+
+
+@pytest.mark.parametrize("bias_filter", [True, False], ids=["bias", "nobias"])
+def test_search_msv_cuda_matches_torch(workload, device, bias_filter):
+    profiles, seqs, _pack, _bank = workload
+    a, b = (SearchPipeline(profiles, device=device, backend=backend, filter_stage="msv",
+                           bias_filter=bias_filter) for backend in ("cuda", "torch"))
+    before = _build.launches["msv_filter"]
+    hits_a, hits_b = a.search(seqs), b.search(seqs)
+    assert _build.launches["msv_filter"] > before
     assert a.stage_counts == b.stage_counts
     assert [(h.sequence_index, h.profile.name) for h in hits_a] == [
         (h.sequence_index, h.profile.name) for h in hits_b]

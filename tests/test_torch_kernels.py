@@ -1,10 +1,15 @@
-"""The port's three scoring kernels (plain versions on the CPU) against JAX.
+"""The port's scoring kernels A-C (plain versions on the CPU) against JAX.
 
 Each kernel wrapper, given CPU tensors, runs its plain PyTorch version;
 the same inputs (numpy, from seeds) go through the JAX package's Pallas
 kernels in interpret mode and through its host oracles
-(``gecco_tpu.hmm.engine``).  Tolerances: 5e-3 nats, the JAX package's
-own kernel-parity gate; the F1 survivor matrix must be equal.
+(``gecco_tpu.hmm.engine``).  Kernel A stands for all three SSV
+variants of the TPU: ``_pallas_ssv_quad`` (the search's filter),
+``_pallas_ssv`` (``SSVKernel.__call__``, with the lane-0 mask on a bank
+whose profile fills its padded width) and ``_pallas_ssv_pair`` (a
+near-cap bank); it is held against each.  Tolerances: 5e-3 nats, the
+JAX package's own kernel-parity gate; the F1 survivor matrix must be
+equal.
 """
 
 import numpy
@@ -19,6 +24,7 @@ from gecco_tpu_torch.hmm.kernels import (
     SeqPack, flatten_pairs, pack_mask, ssv_filter, viterbi_pairs)
 from gecco_tpu_torch.hmm.profile import profiles_from_arrays
 from gecco_tpu_torch.hmm.stream import forward_pairs
+from gecco_tpu_torch.hmm.synthetic import consensus_proteins
 
 torch.set_num_threads(1)
 TOL = 5e-3
@@ -77,6 +83,42 @@ def test_ssv_survivors_match_pallas_masks(workload, F1):
     assert mine.shape == theirs.shape
     assert 0 < mine.sum() < mine.size
     numpy.testing.assert_array_equal(mine, theirs)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+def test_ssv_filter_matches_pallas_ssv(workload, masked):
+    """``SSVKernel.__call__`` runs ``_pallas_ssv`` (one residue a roll),
+    with its lane-0 mask where a profile fills the padded width."""
+    from gecco_tpu.hmm.kernels import SSVKernel
+
+    profiles, seqs, host, bank = workload
+    if masked:
+        profiles = [gm for gm in profiles if gm.M < 128]
+        profiles += synthetic_profiles(1, min_length=128, max_length=128, seed=3)
+        seqs = seqs + consensus_proteins(profiles[-1], count=2, length=150, seed=1)
+        host, bank = batch.ProfileBank.build(profiles), _port_bank(profiles)
+    kern = SSVKernel(host, seq_tile=4, profile_chunk=8)
+    assert kern.masked == masked
+    mine = ssv_filter(SeqPack(seqs, "cpu"), bank).numpy()
+    numpy.testing.assert_allclose(mine, kern(seqs, interpret=True), atol=TOL, rtol=0)
+
+
+def test_ssv_filter_matches_pallas_ssv_pair():
+    """``SSVKernel.scores_packed`` on a profile within three nodes of its
+    padded width runs ``_pallas_ssv_pair`` (two residues a roll)."""
+    from gecco_tpu.hmm.kernels import SSVKernel
+    from gecco_tpu.hmm.kernels import SeqPack as JaxSeqPack
+
+    profiles = synthetic_profiles(1, min_length=127, max_length=127, seed=3)
+    host = batch.ProfileBank.build(profiles)
+    kern = SSVKernel(host, seq_tile=4, profile_chunk=8)
+    assert host.Mp == 128 and not kern.masked and not kern.quad
+    xs = consensus_proteins(profiles[0], count=5, length=200)
+    theirs = numpy.asarray(kern.scores_packed(JaxSeqPack(xs, 256), interpret=True))
+    mine = ssv_filter(SeqPack(xs, "cpu"), _port_bank(profiles)).numpy()
+    numpy.testing.assert_allclose(mine, theirs[: len(xs), :1], atol=TOL, rtol=0)
+    for s, x in enumerate(xs):
+        assert mine[s, 0] == pytest.approx(engine.ssv_score(profiles[0], x), abs=TOL), s
 
 
 def _survivors(n_seqs, P):

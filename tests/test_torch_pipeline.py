@@ -29,8 +29,8 @@ def _port(profiles):
     return profiles_from_arrays([vars(gm.hmm) for gm in profiles])
 
 
-@pytest.fixture(scope="module")
-def multidomain():
+def multidomain_inputs():
+    """JAX profiles (calibrated) and proteins of the multidomain workload."""
     profiles = synthetic_profiles(6, min_length=40, max_length=80, seed=21)
     jax_calibrate(profiles, n=160, L=160, seed=5)
     rng = numpy.random.default_rng(11)
@@ -45,6 +45,12 @@ def multidomain():
             if off + gm.M + 10 < len(x):
                 x = plant_domain(x, gm, rng, offset=off, max_len=gm.M, divergence=0.15)
         seqs[i] = x
+    return profiles, seqs
+
+
+@pytest.fixture(scope="module")
+def multidomain():
+    profiles, seqs = multidomain_inputs()
     reference = JaxSearchPipeline(profiles, Z=6, domZ=6, backend="xla")
     hits = reference.search(seqs)
     return _port(profiles), seqs, hits, reference.stage_counts
@@ -99,10 +105,14 @@ def test_cuda_device_raises_without_card():
         SearchPipeline([], device="cuda")
 
 
-def test_calibrate_matches_jax_package():
+@pytest.mark.parametrize("jax_backend", [None, "pallas"])
+def test_calibrate_matches_jax_package(jax_backend):
+    """Both JAX routes: the XLA engines, and the Pallas kernels
+    (``_pallas_ssv`` through ``SSVKernel.__call__``, ``_pallas_fwd``) in
+    interpret mode."""
     profiles = synthetic_profiles(4, min_length=30, max_length=150, seed=2)
     mine = _port(profiles)
-    jax_calibrate(profiles, n=64, L=96, seed=1)
+    jax_calibrate(profiles, n=64, L=96, seed=1, backend=jax_backend)
     calibrate(mine, device="cpu", n=64, L=96, seed=1)
     for a, b in zip(mine, profiles):
         for key in ("MSV", "VITERBI", "FORWARD"):
