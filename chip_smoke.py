@@ -16,7 +16,10 @@ Phases (each prints its wall seconds, each ends in a device sync):
    their planted profiles (the bank's width classes in turn) and against
    the wide profile, one launch per width class as the search makes
    them, and over the envelope rows those pairs yield (every class has
-   rows); the dense kernel H in both semirings over 32 proteins against
+   rows); the pair kernels J and K over the same pairs and rows, beside
+   D + E and F + G, and kernels B and C over each row's envelope as a
+   residue window (``ranges``; a window of the whole sequence equal to
+   the launch without one); the dense kernel H in both semirings over 32 proteins against
    the whole bank (every width class, 128 to 4,096 nodes), and against
    kernels C and B on the same pairs; the MSV kernel I on the first
    bank (every MSV score at least the SSV score of its pair); kernel A on
@@ -44,14 +47,21 @@ Phases (each prints its wall seconds, each ends in a device sync):
    memory, the same search on plain PyTorch for the first proteins, and
    that comparison again with ``bias_filter=False`` (hmmsearch
    ``--nobias``);
-6. CLI: ``gecco-tpu-torch run`` on the genome with the calibrated bank
+6. pair domains: ``PairDomains(backend="cuda").define`` (kernels J and
+   K) over the F3 candidates of phase 3, the same domains as
+   ``StreamDomains.define`` gives on them, its launch counts, device
+   milliseconds, peak device memory and host pairs; the same against
+   plain PyTorch on the first proteins' candidates; and every envelope
+   found rescored as a residue window by kernels C and B against their
+   plain versions;
+7. CLI: ``gecco-tpu-torch run`` on the genome with the calibrated bank
    written as ``.h3m`` (accessions renamed to the embedded model's
    Pfam whitelist).
 
-The searches of phases 3, 4 and 5 run under ``torch.profiler`` (device
-activity only), which gives each kernel's device milliseconds and the
-card's idle share of the search; the launch counts are set to 0 just
-before each search and read just after it.  The line before the last
+The searches of phases 3, 4 and 5 and the domain definition of phase 6
+run under ``torch.profiler`` (device activity only), which gives each
+kernel's device milliseconds and the card's idle share; the launch
+counts are set to 0 just before each and read just after it.  The line before the last
 is a JSON object describing each kernel (its launches on the search
 that runs it, its error against the plain version, its time, the plain
 version's time and its bound); the last line is ``{"ok": true,
@@ -91,6 +101,7 @@ HEAD = 48
 #: scales sum in another order than the plain versions; trajectories,
 #: posteriors and null2 log-ratios likewise
 TOL = {"ssv_filter": 1e-4, "msv_filter": 1e-4, "viterbi_pairs": 1e-4, "forward_pairs": 1e-3,
+       "viterbi_window": 1e-4, "forward_window": 1e-3,
        "trajectory": 1e-4, "log_scale": 1e-3, "logn2": 1e-3,
        "dense_forward": 1e-3, "dense_viterbi": 1e-4}
 #: kernel H against kernels C and B (the same functions by other
@@ -111,27 +122,35 @@ REPLACES = {
     "ssv_filter": ("gecco_tpu_torch/csrc/ssv.cu",
                    "gecco_tpu/hmm/kernels.py:643, gecco_tpu/hmm/kernels.py:467, "
                    "gecco_tpu/hmm/kernels.py:544"),
-    "viterbi_pairs": ("gecco_tpu_torch/csrc/viterbi.cu", "gecco_tpu/hmm/kernels.py:1312"),
-    "forward_pairs": ("gecco_tpu_torch/csrc/forward.cu", "gecco_tpu/hmm/stream.py:1047"),
+    "viterbi_pairs": ("gecco_tpu_torch/csrc/viterbi.cu",
+                      "gecco_tpu/hmm/kernels.py:1312, gecco_tpu/hmm/kernels.py:1181"),
+    "forward_pairs": ("gecco_tpu_torch/csrc/forward.cu",
+                      "gecco_tpu/hmm/stream.py:1047, gecco_tpu/hmm/kernels.py:1181"),
     "posterior_fwd": ("gecco_tpu_torch/csrc/stream_fwd.cu", "gecco_tpu/hmm/stream.py:60"),
     "posterior_bwd": ("gecco_tpu_torch/csrc/stream_bwd.cu", "gecco_tpu/hmm/stream.py:216"),
     "align_bwd": ("gecco_tpu_torch/csrc/align_bwd.cu", "gecco_tpu/hmm/stream.py:395"),
     "align_fwd": ("gecco_tpu_torch/csrc/align_fwd.cu", "gecco_tpu/hmm/stream.py:568"),
     "dense_scores": ("gecco_tpu_torch/csrc/dense.cu", "gecco_tpu/hmm/kernels.py:1051"),
     "msv_filter": ("gecco_tpu_torch/csrc/msv.cu", "gecco_tpu/hmm/kernels.py:273"),
+    "pair_posterior": ("gecco_tpu_torch/csrc/pair_posterior.cu",
+                       "gecco_tpu/hmm/kernels.py:1718"),
+    "pair_align": ("gecco_tpu_torch/csrc/pair_align.cu", "gecco_tpu/hmm/kernels.py:2072"),
 }
 #: name of each wrapper's ``__global__`` function (templates add ``<W>``)
 GLOBALS = {"ssv_filter": "ssv_kernel", "viterbi_pairs": "viterbi_kernel",
            "forward_pairs": "forward_kernel", "posterior_fwd": "posterior_fwd_kernel",
            "posterior_bwd": "posterior_bwd_kernel", "align_bwd": "align_bwd_kernel",
            "align_fwd": "align_fwd_kernel", "dense_scores": "dense_kernel",
-           "msv_filter": "msv_kernel"}
+           "msv_filter": "msv_kernel", "pair_posterior": "pair_posterior_kernel",
+           "pair_align": "pair_align_kernel"}
 #: the kernels of each search: the default path (phase 3), max_filter
 #: (phase 4) and the MSV filter stage (phase 5)
 DOMAIN_PATH = ("posterior_fwd", "posterior_bwd", "align_bwd", "align_fwd")
 DEFAULT_PATH = ("ssv_filter", "viterbi_pairs", "forward_pairs", *DOMAIN_PATH)
 MAX_FILTER_PATH = ("dense_scores", *DOMAIN_PATH)
 MSV_PATH = ("msv_filter", "viterbi_pairs", "forward_pairs", *DOMAIN_PATH)
+#: the kernels of ``PairDomains.define`` (phase 6)
+PAIR_PATH = ("pair_posterior", "pair_align")
 #: the least time of a kernel's work (``bound_ms``): the larger of its float
 #: operations over the H100 SXM's float32 peak outside the tensor cores and
 #: its bytes (each input read once, each output written once) over the HBM
@@ -146,10 +165,13 @@ PEAK_BYTES = 3.35e12
 #: E sum (2), rescale (3), H's Viterbi one fewer (E a max of M alone); E and
 #: F = the Backward step with its delete chain and rescale; G = the Forward
 #: and the envelope Forward (2 x 19), posteriors (6) and the optimal-accuracy
-#: DP (20)
+#: DP (20); J = D's and E's steps over every cell; K = F's step over the
+#: cells from the envelope's first residue to the last of the sequence and
+#: G's over those up to the envelope's last
 FLOPS_PER_CELL = {"ssv_filter": 4, "msv_filter": 3, "viterbi_pairs": 15, "forward_pairs": 19,
                   "posterior_fwd": 19, "posterior_bwd": 24, "align_bwd": 24,
-                  "align_fwd": 64, "dense_forward": 19, "dense_viterbi": 18}
+                  "align_fwd": 64, "dense_forward": 19, "dense_viterbi": 18,
+                  "pair_posterior": 19 + 24}
 #: float32 planes a Forward/Backward kernel reads per node of a profile
 #: (21 emission rows and 8 transitions)
 PLANES = 29
@@ -206,6 +228,16 @@ def all_pairs_work(pack, lengths, per_cell, planes=PLANES):
     return cells * per_cell, nbytes
 
 
+def start_profiler():
+    """One throwaway ``torch.profiler`` trace around a small kernel.  The
+    first launches of a trace that follows minutes without one were seen
+    to go unrecorded (kernel A's five launches of the first search), so each
+    measured trace is opened right after this one."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]):
+        torch.zeros(1024, device="cuda").sum()
+        torch.cuda.synchronize()
+
+
 def device_ms(prof):
     """Device milliseconds of each kernel name in a ``torch.profiler`` run."""
     out = {}
@@ -231,7 +263,7 @@ def timed_ms(fn, repeats):
     return result, start.elapsed_time(end) / repeats
 
 
-def phase_kernels(device, report):
+def phase_kernels(device, report, kernels):
     import warnings
 
     from gecco_tpu_torch.hmm.bank import TorchBank
@@ -292,7 +324,7 @@ def phase_kernels(device, report):
         report(name, [(name, got, want)], ms, plain_ms,
                pair_work(pack, lengths, s_idx, p_idx, FLOPS_PER_CELL[name], 4.0 * len(s_idx)))
     phase_dense_kernel(device, bank, seqs[:DENSE_PROTEINS], report)
-    phase_domain_kernels(device, profiles, bank, report)
+    phase_domain_kernels(device, profiles, bank, report, kernels)
 
 
 def phase_ssv_widths(device, report):
@@ -350,10 +382,11 @@ def phase_dense_kernel(device, bank, seqs, report):
            viterbi_bound_ms=bound(*v_work)["bound_ms"])
 
 
-def phase_domain_kernels(device, profiles, bank, report):
-    """Kernels D-G against their plain versions, one launch per width class."""
-    from gecco_tpu_torch.hmm import stream
-    from gecco_tpu_torch.hmm.kernels import SeqPack
+def phase_domain_kernels(device, profiles, bank, report, kernels):
+    """Kernels D-G, then J and K, against their plain versions, one launch
+    per width class; kernels B and C over the envelopes as residue windows."""
+    from gecco_tpu_torch.hmm import domains, stream
+    from gecco_tpu_torch.hmm.kernels import SeqPack, viterbi_pairs, viterbi_pairs_plain
     from gecco_tpu_torch.hmm.synthetic import plant_domain, synthetic_proteins
 
     rng = numpy.random.default_rng(6)
@@ -470,6 +503,55 @@ def phase_domain_kernels(device, profiles, bank, report):
            + [("logn2", got[0][:, 1:], want[0][:, 1:]) for got, want in outs], ms, plain_ms,
            work("align_fwd", fwd_rows, outs, in_bytes=envelope_bytes, cells_to=lambda a: a[5]))
 
+    # kernel J over the pairs of D and E, kernel K over the rows of F and G
+    outs, ms, plain_ms = run(domains.pair_posterior, domains.pair_posterior_plain, groups, 3)
+    report("pair_posterior",
+           [("log_scale", got[0], want[0]) for got, want in outs]
+           + [("trajectory", torch.stack(got[1:]), torch.stack(want[1:])) for got, want in outs],
+           ms, plain_ms, work("pair_posterior", groups, outs),
+           two_kernel_ms=kernels["posterior_fwd"]["ms"] + kernels["posterior_bwd"]["ms"])
+    align_rows = [(*g, *env) for g, env in rows]
+    outs, ms, plain_ms = run(domains.pair_align, domains.pair_align_plain, align_rows, 2)
+    for got, want in outs:
+        require(torch.equal(got[1], want[1]), "pair_align coordinates differ from plain")
+    flops = nbytes = 0.0
+    for (s_idx, p_idx, iv, jv, total), (got, _want) in zip(align_rows, outs):
+        iv, jv = numpy.asarray(iv, numpy.float64), numpy.asarray(jv, numpy.float64)
+        _f, b = pair_work(pack, lengths, s_idx, p_idx, 0,
+                          tensor_bytes(*got, total) + 8.0 * len(iv))
+        flops += float(((FLOPS_PER_CELL["align_bwd"] * (pack.lens_host[s_idx] - iv + 1)
+                         + FLOPS_PER_CELL["align_fwd"] * jv) * lengths[p_idx]).sum())
+        nbytes += b
+    report("pair_align",
+           [("log_scale", got[0][:, 0], want[0][:, 0]) for got, want in outs]
+           + [("logn2", got[0][:, 1:], want[0][:, 1:]) for got, want in outs], ms, plain_ms,
+           (flops, nbytes),
+           two_kernel_ms=kernels["align_bwd"]["ms"] + kernels["align_fwd"]["ms"])
+
+    # kernels B and C over each row's envelope as a residue window, and a
+    # window of the whole sequence against the launch without one
+    s_env = numpy.concatenate([g[0] for g, _env in rows])
+    p_env = numpy.concatenate([g[1] for g, _env in rows])
+    ranges = numpy.stack([numpy.concatenate([env[0] for _g, env in rows]) - 1,
+                          numpy.concatenate([env[1] for _g, env in rows])], 1)
+    whole = numpy.stack([numpy.zeros(len(s_all), numpy.int64), pack.lens_host[s_all]], 1)
+    cells = float(((ranges[:, 1] - ranges[:, 0]) * lengths[p_env]).sum())
+    for name, kernel, plain, key in (
+            ("viterbi_pairs", viterbi_pairs, viterbi_pairs_plain, "viterbi_window"),
+            ("forward_pairs", stream.forward_pairs, stream.forward_pairs_plain,
+             "forward_window")):
+        require(torch.equal(kernel(pack, bank, s_all, p_all, ranges=whole),
+                            kernel(pack, bank, s_all, p_all)),
+                f"{name}: a window of the whole sequence differs from the launch without ranges")
+        got, ms = timed_ms(lambda: kernel(pack, bank, s_env, p_env, ranges=ranges), 3)
+        want, plain_ms = timed_ms(lambda: plain(pack, bank, s_env, p_env, ranges=ranges), 1)
+        _f, nbytes = pair_work(pack, lengths, s_env, p_env, 0, 12.0 * len(s_env))
+        report(name, [(key, got, want)], ms, plain_ms, (cells * FLOPS_PER_CELL[name], nbytes),
+               variant="windowed")
+    print(f"# windowed pair kernels: {len(s_env)} envelope windows, {cells!r} cells; whole-"
+          f"sequence windows of {len(s_all)} pairs equal the launches without ranges",
+          flush=True)
+
 
 def profiled_search(pipeline, seqs, device, path):
     """One search with the launch counts set to 0 just before it and read
@@ -481,6 +563,7 @@ def profiled_search(pipeline, seqs, device, path):
     _ = pipeline.bank  # upload outside the timed search
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
+    start_profiler()
     _build.reset_launches()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -506,6 +589,9 @@ def profiled_search(pipeline, seqs, device, path):
           f"{torch.cuda.max_memory_allocated(device)} bytes", flush=True)
     for name in path:
         require(launches[name] > 0, f"kernel {name} was not launched by the search")
+        if not per_kernel[name]:
+            print(f"# device ms of {name}: not measured (the profiler recorded none of its "
+                  f"{launches[name]} launches)", flush=True)
     require(pipeline.stage_counts.get("reported", 0) > 0, "no hit reported")
     # messages are built only for a failure: a hit's repr prints its
     # profile's arrays, and a search may report ~10^5 hits
@@ -565,12 +651,14 @@ def phase_search(device, state):
     pipeline = SearchPipeline(profiles, device=device, Z=N_PROFILES, domZ=N_PROFILES,
                               backend="cuda")
     hits, launches = profiled_search(pipeline, seqs, device, DEFAULT_PATH)
+    candidates = list(pipeline.candidate_pairs)   # before the next search replaces them
     for stage, count in FUNNEL.items():
         require(pipeline.stage_counts.get(stage) == count,
                 f"funnel at {stage}: {pipeline.stage_counts.get(stage)} != {count}")
     compare_with_plain(pipeline, profiles, seqs[:HEAD], device)
     state.update(genome=genome, profiles=profiles, seqs=seqs, launches=launches,
-                 hits={(h.sequence_index, h.profile.name) for h in hits})
+                 hits={(h.sequence_index, h.profile.name) for h in hits},
+                 bank=pipeline.bank, candidates=candidates)
 
 
 def phase_max_filter(device, state):
@@ -637,6 +725,96 @@ def phase_msv_search(device, state):
                        bias_filter=False)
     require(_build.launches["msv_filter"] > 0, "the MSV search without bias skipped kernel I")
     state.update(msv_launches=launches)
+
+
+def phase_pair_domains(device, state):
+    """``PairDomains`` (kernels J and K) over the default search's F3
+    candidates against ``StreamDomains`` (kernels D-G) and plain PyTorch;
+    kernels C and B over every envelope found as a residue window."""
+    from gecco_tpu_torch import _build
+    from gecco_tpu_torch.hmm.domains import PairDomains
+    from gecco_tpu_torch.hmm.kernels import SeqPack, viterbi_pairs, viterbi_pairs_plain
+    from gecco_tpu_torch.hmm.stream import StreamDomains, forward_pairs, forward_pairs_plain
+
+    profiles, seqs, bank, pairs = (state[k] for k in ("profiles", "seqs", "bank", "candidates"))
+    require(len(pairs) == FUNNEL["F3"], f"{len(pairs)} candidates, not {FUNNEL['F3']}")
+    pack = SeqPack(seqs, device)
+
+    def define(domains, pairs):
+        """One ``define`` under the profiler, the launch counts set to 0 just before."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        start_profiler()
+        _build.reset_launches()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = domains.define(seqs, pairs, pack)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        by_key = device_ms(prof)
+        per_kernel = {name: sum(ms for key, ms in by_key.items() if fn in key)
+                      for name, fn in GLOBALS.items()}
+        return out, dict(_build.launches), {k: v for k, v in per_kernel.items() if v}, seconds, \
+            torch.cuda.max_memory_allocated(device)
+
+    def same(got, want, what):
+        require(sorted(got) == sorted(want), f"PairDomains pairs differ from {what}")
+        count = 0
+        for key, doms in want.items():
+            coords = [(d.ienv, d.jenv, d.target_from, d.target_to, d.hmm_from, d.hmm_to)
+                      for d in doms]
+            require([(d.ienv, d.jenv, d.target_from, d.target_to, d.hmm_from, d.hmm_to)
+                     for d in got[key]] == coords, f"domains of {key} differ from {what}")
+            for a, b in zip(got[key], doms):
+                require(abs(a.bitscore - b.bitscore) <= 1e-2,
+                        f"domain score {a.bitscore} != {what} {b.bitscore}")
+            count += len(doms)
+        return count
+
+    for turn in range(2):     # stream, pair, pair, stream: both on a warm card
+        order = (StreamDomains, PairDomains) if turn == 0 else (PairDomains, StreamDomains)
+        for cls in order:
+            domains = cls(bank, profiles, backend="cuda")
+            out, launches, ms, seconds, peak = define(domains, pairs)
+            print(f"# {cls.__name__}.define over {len(pairs)} candidates: {seconds!r} s, "
+                  f"{sum(map(len, out.values()))} domains, host_pairs {domains.host_pairs}, "
+                  f"peak device memory {peak} bytes, launches "
+                  f"{json.dumps({k: v for k, v in launches.items() if v})}, device ms "
+                  f"(profiler) {json.dumps(ms)}", flush=True)
+            if cls is PairDomains:
+                got, pair_launches = out, launches
+            else:
+                want = out
+    for name in PAIR_PATH:
+        require(pair_launches[name] > 0, f"kernel {name} was not launched by PairDomains")
+    for name in DOMAIN_PATH:
+        require(pair_launches[name] == 0, f"PairDomains launched the stream kernel {name}")
+    count = same(got, want, "StreamDomains")
+    print(f"# PairDomains: {count} domains of {len(pairs)} candidates equal StreamDomains' "
+          f"(coordinates equal, bit scores within 1e-2)", flush=True)
+
+    head = [(s, p) for s, p in pairs if s < HEAD]
+    plain = PairDomains(bank, profiles, backend="torch").define(seqs, head, pack)
+    count = same({key: got[key] for key in plain}, plain, "plain PyTorch")
+    print(f"# reference (PairDomains on plain torch, {len(head)} candidates of the first "
+          f"{HEAD} proteins): {count} domains agree", flush=True)
+
+    # every envelope found, rescored as a residue window
+    rows = [(s, p, d.ienv - 1, d.jenv) for (s, p), doms in got.items() for d in doms]
+    s_idx, p_idx = (numpy.array([row[k] for row in rows]) for k in (0, 1))
+    ranges = numpy.array([row[2:] for row in rows])
+    for name, kernel, plain_fn, key in (
+            ("forward_pairs", forward_pairs, forward_pairs_plain, "forward_window"),
+            ("viterbi_pairs", viterbi_pairs, viterbi_pairs_plain, "viterbi_window")):
+        window = kernel(pack, bank, s_idx, p_idx, ranges=ranges)
+        err = float((window - plain_fn(pack, bank, s_idx, p_idx, ranges=ranges)).abs().max())
+        full = kernel(pack, bank, s_idx, p_idx)
+        require(bool(torch.isfinite(window).all()) and err <= TOL[key],
+                f"{name} over the envelopes disagrees with its plain version: {err}")
+        print(f"# {name} over {len(rows)} envelope windows: max abs {err!r} against plain "
+              f"(tol {TOL[key]}); mean window score {float(window.mean())!r} nats, whole "
+              f"sequence {float(full.mean())!r}", flush=True)
+    state.update(pair_launches=pair_launches)
 
 
 def phase_cli(device, state):
@@ -725,15 +903,27 @@ def main():
         t0 = time.perf_counter()
         _build.library()
         print(f"# kernels built in {time.perf_counter() - t0:.3f} s", flush=True)
+        # kernel K's registers and spills per thread shape (THREADS x CHUNK nodes)
+        usage = re.findall(
+            r"pair_align_kernelILi(\d+)ELi(\d+)E.*?\n.*?\n\s*(\d+) bytes stack frame, (\d+) bytes "
+            r"spill stores, (\d+) bytes spill loads\n.*?Used (\d+) registers",
+            _build.resource_usage("pair_align.cu"))
+        require(len(usage) == 6, "nvcc -Xptxas -v did not report kernel K's six shapes")
+        print("# kernel pair_align (-Xptxas -v) " + json.dumps(
+            {f"{int(t) * int(c)} nodes ({t}x{c})": {
+                "registers": int(regs), "stack": int(stack), "spill_stores": int(st),
+                "spill_loads": int(ld)} for t, c, stack, st, ld, regs in usage}), flush=True)
     with Phase("2 kernels"):
-        phase_kernels(device, report)
+        phase_kernels(device, report, kernels)
     with Phase("3 search"):
         phase_search(device, state)
     with Phase("4 max-filter search"):
         phase_max_filter(device, state)
     with Phase("5 msv search"):
         phase_msv_search(device, state)
-    with Phase("6 cli"):
+    with Phase("6 pair domains"):
+        phase_pair_domains(device, state)
+    with Phase("7 cli"):
         phase_cli(device, state)
 
     loaded = sorted(name for name, module in sys.modules.items()
@@ -741,7 +931,8 @@ def main():
     require(not loaded, f"JAX or the JAX package was imported: {loaded}")
     # each kernel's launches on the search whose path it is
     launches = {**state["launches"], "dense_scores": state["max_launches"]["dense_scores"],
-                "msv_filter": state["msv_launches"]["msv_filter"]}
+                "msv_filter": state["msv_launches"]["msv_filter"],
+                **{name: state["pair_launches"][name] for name in PAIR_PATH}}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": REPLACES[name][0],
          "replaces": REPLACES[name][1], "launches": launches[name], **kernels[name]}

@@ -20,7 +20,7 @@ import tempfile
 import threading
 from typing import Dict, Optional
 
-__all__ = ["library", "launches", "reset_launches", "check", "FLAGS"]
+__all__ = ["library", "launches", "reset_launches", "check", "resource_usage", "FLAGS"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
@@ -35,7 +35,7 @@ FLAGS = [
 launches: Dict[str, int] = {
     "ssv_filter": 0, "viterbi_pairs": 0, "forward_pairs": 0,
     "posterior_fwd": 0, "posterior_bwd": 0, "align_bwd": 0, "align_fwd": 0,
-    "dense_scores": 0, "msv_filter": 0,
+    "dense_scores": 0, "msv_filter": 0, "pair_posterior": 0, "pair_align": 0,
 }
 
 _P = ctypes.c_void_p
@@ -46,15 +46,19 @@ _SIGNATURES = {
     "gecco_ssv_filter": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P],
     "gecco_msv_filter": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P],
     # xs, offsets, lens, loops, moves, pair_seq, pair_prof, n_pairs,
-    # e, trans, model_len, P, Mp, width, out, stream
-    "gecco_viterbi_pairs": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P],
-    "gecco_forward_pairs": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P],
+    # e, trans, model_len, P, Mp, width, starts, ends (both null for whole
+    # sequences), out, stream
+    "gecco_viterbi_pairs": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P,
+                            _P],
+    "gecco_forward_pairs": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P,
+                            _P],
     # xs, offsets, lens, loops, moves, n_seqs, e_odds, trans, prof_idx,
     # n_prof, model_len, P, Mp, width, viterbi, out, stream
     "gecco_dense_scores": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P, _P],
 }
-# kernels D-G: xs, offsets, lens, loops, moves, seq, prof, n_rows, e_odds,
-# trans, model_len, P, Mp, width, stride, then their own arrays and the stream
+# kernels D-G, J and K: xs, offsets, lens, loops, moves, seq, prof, n_rows,
+# e_odds, trans, model_len, P, Mp, width, stride, then their own arguments
+# and the stream
 _ROWS = [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I]
 _SIGNATURES.update({
     "gecco_posterior_fwd": _ROWS + [_P, _P, _P],                  # traj, score
@@ -62,6 +66,9 @@ _SIGNATURES.update({
     "gecco_align_bwd": _ROWS + [_P, _P, _P],                      # planes, logs
     "gecco_align_fwd": _ROWS + [_P, _P, _P, _P, _P, _P, _P, _P],  # planes, logs, iv, jv,
                                                                   # total, out, coords
+    "gecco_pair_posterior": _ROWS + [_I, _P, _P, _P],             # n_post, score, post
+    # iv, jv, total, env_stride, planes, logs (scratch), out, coords
+    "gecco_pair_align": _ROWS + [_P, _P, _P, _I, _P, _P, _P, _P, _P],
 })
 
 _lock = threading.Lock()
@@ -142,6 +149,20 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _library = lib
         return lib
+
+
+def resource_usage(source: str) -> str:
+    """What ``nvcc -Xptxas -v`` prints for ``csrc/<source>``: the registers,
+    shared memory and spills of each kernel instantiation."""
+    os.makedirs(_BUILD, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_BUILD) as tmp:
+        done = subprocess.run(
+            [_nvcc(), *FLAGS, "-Xptxas", "-v", "-c", "-o", os.path.join(tmp, "usage.o"),
+             os.path.join(_CSRC, source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if done.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source}:\n{done.stdout}")
+    return done.stdout
 
 
 def check(code: int, name: str) -> None:

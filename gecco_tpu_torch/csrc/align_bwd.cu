@@ -1,8 +1,9 @@
 // Kernel F: alignment Backward, parking the match and insert planes.
 //
 // Replaces gecco_tpu/hmm/stream.py::_stream_align_bwd.  For each envelope
-// row it runs the same Backward recurrence as kernel E (backward_step.cuh)
-// over the row's whole sequence and writes, at every residue o:
+// row it runs the same Backward recurrence as kernel E (backward_step.cuh;
+// the pass is align_pass.cuh's park_backward, shared with kernel K) over
+// the row's whole sequence and writes, at every residue o:
 //
 //   planes[0][row][o][k] = bM_k, planes[1][row][o][k] = bI_k   (bfloat16,
 //     rounded to nearest even as astype(bfloat16) does),
@@ -17,15 +18,11 @@
 //
 // Design: kernel E's, without the posterior.  The planes are [rows,
 // stride, width] in row order, not the TPU's [cells, Lps, C, Mp] stream.
-#include <cuda_bf16.h>
-
-#include "backward_step.cuh"
+#include "align_pass.cuh"
 
 using namespace gecco;
 
 namespace {
-
-constexpr float TINY = 1e-38f;
 
 template <int THREADS, int CHUNK>
 __global__ void __launch_bounds__(THREADS)
@@ -51,27 +48,8 @@ align_bwd_kernel(RowArgs a, __nv_bfloat16* __restrict__ planes, float* __restric
     float* bNl = logs + rows + at;
     float* bJl = logs + 2 * rows + at;
     float* bCl = logs + 3 * rows + at;
-    const int base = threadIdx.x * CHUNK;
-
-    Backward<THREADS, CHUNK> bw{tsm, nm, U, sh};
-    bw.init(row.move);
-    for (int o = row.L - 1; o >= 0; --o) {
-        const bool init = o == row.L - 1;
-        if (!init) bw.step(emission_row(a.e_odds, row, o + 1), row.M, row.loop, row.move);
-        __nv_bfloat16* m = pM + static_cast<size_t>(o) * WIDTH + base;
-        __nv_bfloat16* ins = pI + static_cast<size_t>(o) * WIDTH + base;
-#pragma unroll
-        for (int j = 0; j < CHUNK; ++j) {
-            m[j] = __float2bfloat16_rn(bw.bM[j]);
-            ins[j] = __float2bfloat16_rn(bw.bI[j]);
-        }
-        if (threadIdx.x == 0) {
-            blog[o] = bw.ls;
-            bNl[o] = init ? NEG : logf(bw.bN + TINY) + bw.ls;
-            bJl[o] = init ? NEG : logf(bw.bJ + TINY) + bw.ls;
-            bCl[o] = init ? logf(row.move) : logf(bw.bC + TINY) + bw.ls;
-        }
-    }
+    park_backward<THREADS, CHUNK>(a, row, tsm, nm, U, sh,
+                                  ParkedOut{pM, pI, blog, bNl, bJl, bCl, 0}, 0, row.L - 1);
     const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
     for (size_t idx = static_cast<size_t>(row.L) * WIDTH + threadIdx.x;
          idx < static_cast<size_t>(a.stride) * WIDTH; idx += THREADS) {

@@ -1,5 +1,6 @@
-// The rescaled Backward step shared by kernel E (stream_bwd.cu) and
-// kernel F (align_bwd.cu): gecco_tpu/hmm/stream.py:266-330 and :444-501.
+// The rescaled Backward step shared by kernel E (stream_bwd.cu), kernels F
+// and K (align_pass.cuh) and kernel J (pair_posterior.cu):
+// gecco_tpu/hmm/stream.py:266-330 and :444-501, kernels.py:1877-1909.
 //
 // With e the emission odds of residue o+1 and the carries of o+1:
 //
@@ -197,5 +198,41 @@ struct Backward {
         return bB * inv;
     }
 };
+
+// The Forward trajectories of one row, one value a residue: the rescaled
+// N, B, J, C, E after each residue and the running log scale.  Kernel E
+// reads them from device memory (kernel D's output, no fE); kernel J keeps
+// them in shared memory.
+struct ForwardTraj {
+    const float *fN, *fB, *fJ, *fC, *fE, *flog;
+};
+
+// The posteriors of residue o from the Backward specials of o (rescaled,
+// log scale ls) and the Forward trajectories of o and o-1 (N=1, J=C=0 and
+// log scale 0 before the first residue); `total` is the Forward score:
+//
+//   ppX = fX(o-1) * loop * bX(o) * exp(fls(o-1) + bls(o) - total), X = N, J, C,
+//   mocc(o) = clip(1 - ppN - ppJ - ppC, 0, 1),
+//   pB(o) = fB(o) * bB(o) * exp(fls(o) + bls(o) - total),
+//   pE(o) = fE(o) * bE(o) * exp(fls(o) + bls(o) - total), bE = (bJ + bC) / 2,
+//
+// pE only where `pe` is not null.
+__device__ __forceinline__ void emit_posterior(const ForwardTraj& f, int o, float loop,
+                                               float total, float bN, float bB, float bJ,
+                                               float bC, float ls, float* mocc, float* pb,
+                                               float* pe) {
+    const float pN = o > 0 ? f.fN[o - 1] : 1.0f;
+    const float pJ = o > 0 ? f.fJ[o - 1] : 0.0f;
+    const float pC = o > 0 ? f.fC[o - 1] : 0.0f;
+    const float pls = o > 0 ? f.flog[o - 1] : 0.0f;
+    const float sc_prev = expf(pls + ls - total);
+    const float sc_cur = expf(f.flog[o] + ls - total);
+    const float ppN = pN * loop * bN * sc_prev;
+    const float ppJ = pJ * loop * bJ * sc_prev;
+    const float ppC = pC * loop * bC * sc_prev;
+    mocc[o] = fminf(fmaxf(1.0f - (ppN + ppJ + ppC), 0.0f), 1.0f);
+    pb[o] = f.fB[o] * bB * sc_cur;
+    if (pe != nullptr) pe[o] = f.fE[o] * (0.5f * bJ + 0.5f * bC) * sc_cur;
+}
 
 }  // namespace gecco

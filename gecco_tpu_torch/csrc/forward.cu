@@ -15,6 +15,13 @@
 // and the score log(C * move + 1e-38) + ls after the last residue (an
 // empty sequence scores -1e30).
 //
+// With per-row windows (`starts`, `ends`, 0-based half-open; null for the
+// whole sequence) it also replaces kernels.py::_pallas_pair_fwd's
+// envelope-window rescore (`ranges`): the recurrence starts afresh at
+// residue `start`, runs to `end` and is read there, under the WHOLE
+// sequence's loop and move.  An empty window scores -inf, as the TPU
+// kernel's log(0 + 1e-38) does where 1e-38, a subnormal, is flushed.
+//
 // Bound on the H100: latency of the per-residue dependency chain (a
 // serial DP over residues, a scan and a sum over nodes inside each
 // step); ~12 float operations and one emission read from device memory
@@ -39,7 +46,8 @@ forward_kernel(const int8_t* __restrict__ xs, const int64_t* __restrict__ offset
                const float* __restrict__ moves, const int32_t* __restrict__ pair_seq,
                const int32_t* __restrict__ pair_prof, const float* __restrict__ e_odds,
                const float* __restrict__ trans, const int32_t* __restrict__ model_len, int P,
-               int Mp, float* __restrict__ out) {
+               int Mp, const int32_t* __restrict__ starts, const int32_t* __restrict__ ends,
+               float* __restrict__ out) {
     constexpr int WIDTH = THREADS * CHUNK;
     extern __shared__ float tsm[];  // [8][WIDTH] transition probabilities
     __shared__ ForwardScratch<THREADS> sh;
@@ -58,8 +66,10 @@ forward_kernel(const int8_t* __restrict__ xs, const int64_t* __restrict__ offset
     }
     __syncthreads();
 
-    const int L = lens[s];
-    const int8_t* x = xs + offsets[s];
+    const bool windowed = starts != nullptr;
+    const int start = windowed ? starts[pair] : 0;
+    const int L = windowed ? ends[pair] - start : lens[s];
+    const int8_t* x = xs + offsets[s] + start;
     const float loop = loops[s];
     const float move = moves[s];
 
@@ -67,7 +77,7 @@ forward_kernel(const int8_t* __restrict__ xs, const int64_t* __restrict__ offset
 #pragma unroll
     for (int j = 0; j < CHUNK; ++j) Mv[j] = Iv[j] = Dv[j] = 0.0f;
     float N = 1.0f, B = move, J = 0.0f, C = 0.0f, ls = 0.0f;
-    float score = NEG;
+    float score = windowed ? -INFINITY : NEG;
 
     for (int i = 0; i < L; ++i) {
         const float* e = e_odds + static_cast<size_t>(x[i]) * plane + row;
@@ -81,7 +91,8 @@ template <int THREADS, int CHUNK>
 cudaError_t launch(int n_pairs, cudaStream_t st, const void* xs, const void* offsets,
                    const void* lens, const void* loops, const void* moves, const void* pair_seq,
                    const void* pair_prof, const void* e_odds, const void* trans,
-                   const void* model_len, int P, int Mp, void* out) {
+                   const void* model_len, int P, int Mp, const void* starts, const void* ends,
+                   void* out) {
     const size_t smem = sizeof(float) * 8 * THREADS * CHUNK;
     cudaError_t err = allow_smem(forward_kernel<THREADS, CHUNK>, smem);
     if (err != cudaSuccess) return err;
@@ -91,6 +102,7 @@ cudaError_t launch(int n_pairs, cudaStream_t st, const void* xs, const void* off
         static_cast<const float*>(moves), static_cast<const int32_t*>(pair_seq),
         static_cast<const int32_t*>(pair_prof), static_cast<const float*>(e_odds),
         static_cast<const float*>(trans), static_cast<const int32_t*>(model_len), P, Mp,
+        static_cast<const int32_t*>(starts), static_cast<const int32_t*>(ends),
         static_cast<float*>(out));
     return cudaGetLastError();
 }
@@ -99,17 +111,20 @@ cudaError_t launch(int n_pairs, cudaStream_t st, const void* xs, const void* off
 
 // Scores n_pairs (pair_seq[r], pair_prof[r]) pairs whose profiles all have
 // model length <= width (128, 256, ..., 4096); loops/moves are probabilities
-// (exp of the length model).  Writes out[r]; returns a CUDA error code.
+// (exp of the length model).  starts/ends [n_pairs] int32 are the rows'
+// residue windows (0 <= start <= end <= length), or both null for whole
+// sequences.  Writes out[r]; returns a CUDA error code.
 extern "C" int gecco_forward_pairs(const void* xs, const void* offsets, const void* lens,
                                    const void* loops, const void* moves, const void* pair_seq,
                                    const void* pair_prof, int n_pairs, const void* e_odds,
                                    const void* trans, const void* model_len, int P, int Mp,
-                                   int width, void* out, void* stream) {
+                                   int width, const void* starts, const void* ends, void* out,
+                                   void* stream) {
     if (n_pairs <= 0) return 0;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define GECCO_LAUNCH(T, C)                                                                     \
     launch<T, C>(n_pairs, st, xs, offsets, lens, loops, moves, pair_seq, pair_prof, e_odds,   \
-                 trans, model_len, P, Mp, out)
+                 trans, model_len, P, Mp, starts, ends, out)
     cudaError_t err;
     GECCO_DISPATCH_WIDTH(width, GECCO_LAUNCH)
 #undef GECCO_LAUNCH

@@ -1,5 +1,6 @@
 // The rescaled Forward step (probability space) shared by kernel C
-// (forward.cu), kernel D (stream_fwd.cu) and kernel G (align_fwd.cu).
+// (forward.cu), kernel D (stream_fwd.cu), kernels G and K (align_pass.cuh)
+// and kernel J (pair_posterior.cu).
 //
 // One block scores one row; thread t holds nodes [t*CHUNK, (t+1)*CHUNK)
 // in registers.  Per residue, with e the emission odds of the residue:
@@ -32,14 +33,15 @@ struct ForwardScratch {
 
 // One Forward step over this thread's nodes; `tsm` holds the 8 transition
 // planes [N_TRANS][WIDTH] (zero past M), `e` the emission odds of the
-// residue (node 0, read for k < M).  Leaves the rescaled states in place
+// residue (node 0, read for k < M).  Leaves the rescaled states in place,
+// the rescaled E = sum_k (M_k + D_k) in `E_scaled` (kernel J records it),
 // and returns the step's total.
 template <int THREADS, int CHUNK>
 __device__ __forceinline__ float forward_step(float (&Mv)[CHUNK], float (&Iv)[CHUNK],
                                               float (&Dv)[CHUNK], float& N, float& B, float& J,
                                               float& C, const float* __restrict__ e,
                                               const float* tsm, int M, float loop, float move,
-                                              ForwardScratch<THREADS>& sh) {
+                                              ForwardScratch<THREADS>& sh, float& E_scaled) {
     constexpr int WIDTH = THREADS * CHUNK;
     constexpr int WARPS = THREADS / 32;
     const float* tmm = tsm + T_MM * WIDTH;
@@ -147,7 +149,19 @@ __device__ __forceinline__ float forward_step(float (&Mv)[CHUNK], float (&Iv)[CH
     B = Bn * inv;
     J = Jn * inv;
     C = Cn * inv;
+    E_scaled = E * inv;
     return total;
+}
+
+// The same step for the kernels that do not record E.
+template <int THREADS, int CHUNK>
+__device__ __forceinline__ float forward_step(float (&Mv)[CHUNK], float (&Iv)[CHUNK],
+                                              float (&Dv)[CHUNK], float& N, float& B, float& J,
+                                              float& C, const float* __restrict__ e,
+                                              const float* tsm, int M, float loop, float move,
+                                              ForwardScratch<THREADS>& sh) {
+    float unused;
+    return forward_step<THREADS, CHUNK>(Mv, Iv, Dv, N, B, J, C, e, tsm, M, loop, move, sh, unused);
 }
 
 }  // namespace gecco

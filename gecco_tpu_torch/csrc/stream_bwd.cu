@@ -50,10 +50,7 @@ posterior_bwd_kernel(RowArgs a, const float* __restrict__ traj,
     const size_t rows = static_cast<size_t>(a.n_rows) * a.stride;
     const size_t at = static_cast<size_t>(r) * a.stride;
     const float* fN = traj + at;
-    const float* fB = fN + rows;
-    const float* fJ = fN + 2 * rows;
-    const float* fC = fN + 3 * rows;
-    const float* flog = fN + 4 * rows;
+    const ForwardTraj f{fN, fN + rows, fN + 2 * rows, fN + 3 * rows, nullptr, fN + 4 * rows};
     float* mocc = post + at;
     float* pb = post + rows + at;
     const float total = score[r];
@@ -61,17 +58,7 @@ posterior_bwd_kernel(RowArgs a, const float* __restrict__ traj,
 
     // the posteriors of residue o from the Backward specials of o
     auto emit = [&](int o, float bN, float bB, float bJ, float bC, float ls) {
-        const float pN = o > 0 ? fN[o - 1] : 1.0f;
-        const float pJ = o > 0 ? fJ[o - 1] : 0.0f;
-        const float pC = o > 0 ? fC[o - 1] : 0.0f;
-        const float pls = o > 0 ? flog[o - 1] : 0.0f;
-        const float sc_prev = expf(pls + ls - total);
-        const float sc_cur = expf(flog[o] + ls - total);
-        const float ppN = pN * loop * bN * sc_prev;
-        const float ppJ = pJ * loop * bJ * sc_prev;
-        const float ppC = pC * loop * bC * sc_prev;
-        mocc[o] = fminf(fmaxf(1.0f - (ppN + ppJ + ppC), 0.0f), 1.0f);
-        pb[o] = fB[o] * bB * sc_cur;
+        emit_posterior(f, o, loop, total, bN, bB, bJ, bC, ls, mocc, pb, nullptr);
     };
 
     Backward<THREADS, CHUNK> bw{tsm, nm, U, sh};

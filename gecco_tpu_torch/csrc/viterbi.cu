@@ -15,6 +15,13 @@
 // and returns C + move in nats.  Slots 5 and 6 of the transition tensor
 // hold log tmd - S and S_{j-1} (gecco_tpu_torch.hmm.bank).
 //
+// With per-row windows (`starts`, `ends`, 0-based half-open; null for the
+// whole sequence) it also replaces _pallas_pair_fwd's Viterbi over a
+// residue window (`ranges`): the recurrence starts afresh at `start`, ends
+// at `end`, under the WHOLE sequence's loop and move.  An empty window
+// scores -inf, as the TPU kernel's probability-space log(0 + 1e-38) does
+// where 1e-38, a subnormal, is flushed.
+//
 // Bound on the H100: latency of the per-residue dependency chain.  A
 // pair is one serial dynamic program over its residues with a scan over
 // the nodes inside each step; per DP cell the work is ~10 float
@@ -41,7 +48,8 @@ viterbi_kernel(const int8_t* __restrict__ xs, const int64_t* __restrict__ offset
                const float* __restrict__ moves, const int32_t* __restrict__ pair_seq,
                const int32_t* __restrict__ pair_prof, const float* __restrict__ e_log,
                const float* __restrict__ trans_log, const int32_t* __restrict__ model_len,
-               int P, int Mp, float* __restrict__ out) {
+               int P, int Mp, const int32_t* __restrict__ starts,
+               const int32_t* __restrict__ ends, float* __restrict__ out) {
     constexpr int WIDTH = THREADS * CHUNK;
     constexpr int WARPS = THREADS / 32;
     extern __shared__ float tsm[];  // [8][WIDTH] log transitions
@@ -74,8 +82,10 @@ viterbi_kernel(const int8_t* __restrict__ xs, const int64_t* __restrict__ offset
     const float* Sm1 = tsm + 6 * WIDTH;
     const float* bm = tsm + 7 * WIDTH;
 
-    const int L = lens[s];
-    const int8_t* x = xs + offsets[s];
+    const bool windowed = starts != nullptr;
+    const int start = windowed ? starts[pair] : 0;
+    const int L = windowed ? ends[pair] - start : lens[s];
+    const int8_t* x = xs + offsets[s] + start;
     const float loop = loops[s];
     const float move = moves[s];
     const int base = tid * CHUNK;
@@ -149,14 +159,15 @@ viterbi_kernel(const int8_t* __restrict__ xs, const int64_t* __restrict__ offset
         N = N + loop;
         B = fmaxf(N, J) + move;
     }
-    if (tid == 0) out[pair] = C + move;
+    if (tid == 0) out[pair] = windowed && L == 0 ? -INFINITY : C + move;
 }
 
 template <int THREADS, int CHUNK>
 cudaError_t launch(int n_pairs, cudaStream_t st, const void* xs, const void* offsets,
                    const void* lens, const void* loops, const void* moves, const void* pair_seq,
                    const void* pair_prof, const void* e_log, const void* trans_log,
-                   const void* model_len, int P, int Mp, void* out) {
+                   const void* model_len, int P, int Mp, const void* starts, const void* ends,
+                   void* out) {
     const size_t smem = sizeof(float) * 8 * THREADS * CHUNK;
     cudaError_t err = allow_smem(viterbi_kernel<THREADS, CHUNK>, smem);
     if (err != cudaSuccess) return err;
@@ -166,6 +177,7 @@ cudaError_t launch(int n_pairs, cudaStream_t st, const void* xs, const void* off
         static_cast<const float*>(moves), static_cast<const int32_t*>(pair_seq),
         static_cast<const int32_t*>(pair_prof), static_cast<const float*>(e_log),
         static_cast<const float*>(trans_log), static_cast<const int32_t*>(model_len), P, Mp,
+        static_cast<const int32_t*>(starts), static_cast<const int32_t*>(ends),
         static_cast<float*>(out));
     return cudaGetLastError();
 }
@@ -173,18 +185,20 @@ cudaError_t launch(int n_pairs, cudaStream_t st, const void* xs, const void* off
 }  // namespace
 
 // Scores n_pairs (pair_seq[r], pair_prof[r]) pairs whose profiles all have
-// model length <= width (128, 256, ..., 4096); writes out[r].  Returns a
-// CUDA error code.
+// model length <= width (128, 256, ..., 4096); starts/ends [n_pairs] int32
+// are the rows' residue windows (0 <= start <= end <= length), or both null
+// for whole sequences.  Writes out[r]; returns a CUDA error code.
 extern "C" int gecco_viterbi_pairs(const void* xs, const void* offsets, const void* lens,
                                    const void* loops, const void* moves, const void* pair_seq,
                                    const void* pair_prof, int n_pairs, const void* e_log,
                                    const void* trans_log, const void* model_len, int P, int Mp,
-                                   int width, void* out, void* stream) {
+                                   int width, const void* starts, const void* ends, void* out,
+                                   void* stream) {
     if (n_pairs <= 0) return 0;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define GECCO_LAUNCH(T, C)                                                                     \
     launch<T, C>(n_pairs, st, xs, offsets, lens, loops, moves, pair_seq, pair_prof, e_log,    \
-                 trans_log, model_len, P, Mp, out)
+                 trans_log, model_len, P, Mp, starts, ends, out)
     cudaError_t err;
     switch (width) {
         case 128: err = GECCO_LAUNCH(32, 4); break;

@@ -18,7 +18,9 @@ Counterparts in ``gecco_tpu.hmm.kernels``:
   torch;
 * :func:`viterbi_pairs` — ``PairForwardKernel.call_packed`` through
   ``PairBucketed.flat_packed`` (log-space Viterbi): scores of listed
-  pairs for the F2 gate;
+  pairs for the F2 gate; with ``ranges``, ``PairForwardKernel(...,
+  viterbi=True)(..., ranges=)`` (``_pallas_pair_fwd``): each pair scored
+  over a residue window under the whole sequence's length model;
 * :func:`dense_scores` — ``ForwardKernel`` / ``ViterbiKernel`` through
   ``Bucketed`` (``_pallas_fwd``): Forward or Viterbi scores of every
   pair, the rescore of the ``max_filter`` search (hmmsearch ``--max``).
@@ -314,15 +316,17 @@ def launch_rows(fn_name: str, counter: str, pack: SeqPack, bank: TorchBank,
                 log_space: bool, stride=None) -> None:
     """Launch kernel ``fn_name`` once over the rows ``(seq[r], prof[r])``.
 
-    Every row kernel (B–G) takes the pack, the rows' ``int32`` indices,
-    the bank and ``width``; kernels D–G add ``stride``.  ``tail`` are the
-    kernel's own arrays, passed in order before the stream.
+    Every row kernel (B–G, J, K) takes the pack, the rows' ``int32``
+    indices, the bank and ``width``; kernels D–G, J and K add ``stride``.
+    ``tail`` are the kernel's own arguments, passed in order before the
+    stream: tensors (their pointers), plain integers, or ``None`` for a
+    null pointer.
     """
     _check_pack_bank(pack, bank, log_space)
     for name, t in (("row sequences", seq), ("row profiles", prof)):
         _check(t, torch.int32, name, bank.device)
     for t in tail:
-        if t.device != bank.device or not t.is_contiguous():
+        if isinstance(t, torch.Tensor) and (t.device != bank.device or not t.is_contiguous()):
             raise ValueError(f"{fn_name}: argument not contiguous on {bank.device}")
     n = seq.numel()
     if n == 0:
@@ -339,15 +343,36 @@ def launch_rows(fn_name: str, counter: str, pack: SeqPack, bank: TorchBank,
             loops.data_ptr(), moves.data_ptr(), seq.data_ptr(), prof.data_ptr(), n,
             emissions.data_ptr(), trans.data_ptr(), bank.lengths.data_ptr(),
             bank.P, bank.Mp, width, *(() if stride is None else (stride,)),
-            *[t.data_ptr() for t in tail], stream,
+            *[t.data_ptr() if isinstance(t, torch.Tensor) else t for t in tail], stream,
         )
     _build.check(code, fn_name)
     _build.launches[counter] += 1
 
 
+def check_ranges(pack: SeqPack, seq_idx, ranges):
+    """Residue windows ``[n, 2]`` (0-based, half-open) of rows ``seq_idx``
+    as host ``int64``, or ``None``; raises unless ``0 <= start <= end <=
+    length`` in every row."""
+    if ranges is None:
+        return None
+    seq_idx = numpy.asarray(seq_idx, dtype=numpy.int64)
+    ranges = numpy.asarray(ranges, dtype=numpy.int64)
+    if ranges.shape != (len(seq_idx), 2):
+        raise ValueError(f"ranges must have shape ({len(seq_idx)}, 2)")
+    if len(ranges) and ((ranges[:, 0] < 0).any() or (ranges[:, 0] > ranges[:, 1]).any()
+                        or (ranges[:, 1] > pack.lens_host[seq_idx]).any()):
+        raise ValueError("ranges must satisfy 0 <= start <= end <= length")
+    return ranges
+
+
 def launch_pairs(fn_name: str, counter: str, pack: SeqPack, bank: TorchBank,
-                 seq_idx, prof_idx, log_space: bool) -> torch.Tensor:
-    """Launch a pair kernel once per width class; scores in input order."""
+                 seq_idx, prof_idx, log_space: bool, ranges=None) -> torch.Tensor:
+    """Launch a pair kernel once per width class; scores in input order.
+
+    ``ranges`` (host, checked here before the upload) gives each pair a
+    residue window; without it the kernel takes null window pointers and
+    scores whole sequences.
+    """
     _check_pack_bank(pack, bank, log_space)
     seq_idx = numpy.asarray(seq_idx, dtype=numpy.int64)
     prof_idx = numpy.asarray(prof_idx, dtype=numpy.int64)
@@ -359,21 +384,42 @@ def launch_pairs(fn_name: str, counter: str, pack: SeqPack, bank: TorchBank,
         raise IndexError("pair sequence index out of range")
     if prof_idx.min() < 0 or prof_idx.max() >= bank.P:
         raise IndexError("pair profile index out of range")
+    ranges = check_ranges(pack, seq_idx, ranges)
     width = bank.class_of[prof_idx]
     order = numpy.argsort(width, kind="stable")
     seq_t = torch.as_tensor(seq_idx[order].astype(numpy.int32), device=bank.device)
     prof_t = torch.as_tensor(prof_idx[order].astype(numpy.int32), device=bank.device)
+    if ranges is None:
+        starts = ends = None
+    else:
+        starts, ends = (
+            torch.as_tensor(numpy.ascontiguousarray(ranges[order, k], dtype=numpy.int32),
+                            device=bank.device) for k in (0, 1))
     scores = torch.empty(n, dtype=torch.float32, device=bank.device)
     bounds = numpy.flatnonzero(numpy.diff(width[order])) + 1
     for a, b in zip(numpy.concatenate(([0], bounds)), numpy.concatenate((bounds, [n]))):
+        window = (None, None) if ranges is None else (starts[a:b], ends[a:b])
         launch_rows(fn_name, counter, pack, bank, seq_t[a:b], prof_t[a:b],
-                    int(width[order[a]]), scores[a:b], log_space=log_space)
+                    int(width[order[a]]), *window, scores[a:b], log_space=log_space)
     out[torch.as_tensor(order, device=bank.device)] = scores
     return out
 
 
+def window_rows(pack: SeqPack, s: torch.Tensor, ranges: torch.Tensor):
+    """Plain-path residues of rows ``s``: ``(xs [n, Lmax], lens [n])``, each
+    row cut to its window where ``ranges`` (``[n, 2]``, on the device) is given."""
+    xs = pack.padded()[s]
+    lens = pack.lens.long()[s]
+    if ranges is None:
+        return xs, lens
+    start, end = ranges[:, 0], ranges[:, 1]
+    pos = start[:, None] + torch.arange(xs.shape[1], device=xs.device)[None, :]
+    return torch.gather(xs, 1, pos.clamp(max=xs.shape[1] - 1)), end - start
+
+
 def pair_groups(bank: TorchBank, seq_idx, prof_idx, chunk: int):
-    """Plain-path batches: ``(positions, seq, prof, width)`` per class chunk."""
+    """Plain-path batches: ``(positions, seq, prof, width)`` per class chunk;
+    ``positions`` index the input pairs."""
     seq_idx = numpy.asarray(seq_idx, dtype=numpy.int64)
     prof_idx = numpy.asarray(prof_idx, dtype=numpy.int64)
     width = bank.class_of[prof_idx] if len(prof_idx) else numpy.zeros(0, numpy.int64)
@@ -391,16 +437,24 @@ def pair_groups(bank: TorchBank, seq_idx, prof_idx, chunk: int):
 # kernel B: Viterbi pair scores
 # ---------------------------------------------------------------------------
 
-def viterbi_pairs(pack: SeqPack, bank: TorchBank, seq_idx, prof_idx) -> torch.Tensor:
-    """Viterbi scores (nats) of pairs ``(seq_idx[r], prof_idx[r])``, ``[n]``."""
+def viterbi_pairs(pack: SeqPack, bank: TorchBank, seq_idx, prof_idx,
+                  ranges=None) -> torch.Tensor:
+    """Viterbi scores (nats) of pairs ``(seq_idx[r], prof_idx[r])``, ``[n]``.
+
+    ``ranges`` (``[n, 2]`` host integers, 0-based half-open, ``0 <= start
+    <= end <= length``) scores residues ``x[start:end]`` of each pair
+    under the whole sequence's length model, as ``_pallas_pair_fwd`` does
+    with ``ranges``; an empty window scores −inf (what the TPU kernel's
+    ``log(0 + 1e-38)`` gives where the subnormal is flushed).
+    """
     if _kernel_device(pack, bank) == "cpu":
-        return viterbi_pairs_plain(pack, bank, seq_idx, prof_idx)
+        return viterbi_pairs_plain(pack, bank, seq_idx, prof_idx, ranges=ranges)
     return launch_pairs("gecco_viterbi_pairs", "viterbi_pairs", pack, bank,
-                        seq_idx, prof_idx, log_space=True)
+                        seq_idx, prof_idx, log_space=True, ranges=ranges)
 
 
 def viterbi_pairs_plain(pack: SeqPack, bank: TorchBank, seq_idx, prof_idx,
-                        chunk: int = 4096) -> torch.Tensor:
+                        chunk: int = 4096, ranges=None) -> torch.Tensor:
     """Plain PyTorch log-space Viterbi over ``[pairs, W]`` planes.
 
     The delete chain is the exact prefix max (``torch.cummax``) of the
@@ -408,14 +462,15 @@ def viterbi_pairs_plain(pack: SeqPack, bank: TorchBank, seq_idx, prof_idx,
     """
     device = bank.device
     out = torch.empty(len(seq_idx), dtype=torch.float32, device=device)
-    xs_all = pack.padded()
+    ranges = check_ranges(pack, seq_idx, ranges)
+    if ranges is not None:
+        ranges = torch.as_tensor(ranges, device=device)
     for pos, s, p, W in pair_groups(bank, seq_idx, prof_idx, chunk):
         R = len(pos)
         tmm, tim, tdm, tmi, tii, tmdS, Sm1, bm = bank.trans_log[:, p, :W]
-        lens = pack.lens.long()[s]
+        xs, lens = window_rows(pack, s, None if ranges is None else ranges[pos])
         loop = pack.loops_log[s][:, None]
         move = pack.moves_log[s][:, None]
-        xs = xs_all[s]
         neg = torch.full((R, W), NEG, dtype=torch.float32, device=device)
         col = neg[:, :1]
         M, I, D = neg, neg, neg
@@ -437,7 +492,8 @@ def viterbi_pairs_plain(pack: SeqPack, bank: TorchBank, seq_idx, prof_idx,
             Bn = torch.maximum(Nn, Jn) + move
             M, I, D = (torch.where(alive, a, b) for a, b in ((Mn, M), (In, I), (Dn, D)))
             N, B, J, C = (torch.where(alive, a, b) for a, b in ((Nn, N), (Bn, B), (Jn, J), (Cn, C)))
-        out[pos] = (C + move)[:, 0]
+        score = (C + move)[:, 0]
+        out[pos] = score if ranges is None else torch.where(lens > 0, score, -math.inf)
     return out
 
 

@@ -145,6 +145,9 @@ class SearchPipeline:
         self.stage_cells: Dict[str, float] = {}
         #: pairs of the last search whose domains the host engine defined
         self.host_pairs = 0
+        #: the (sequence, profile) pairs of the last search that reached
+        #: domain definition (``stage_counts["F3"]`` of them)
+        self.candidate_pairs: List[Tuple[int, int]] = []
         self._bank = ProfileBank.build(self.profiles) if self.profiles else None
         self._torch_bank: Optional[TorchBank] = None
         self._logratio = None
@@ -183,6 +186,7 @@ class SearchPipeline:
         self.stage_seconds = {}
         self.stage_cells = {}
         self.host_pairs = 0
+        self.candidate_pairs = []
         if not self.profiles or not sequences:
             return []
         host = self._bank
@@ -233,9 +237,9 @@ class SearchPipeline:
 
         # domain definition on the device (kernels D-G), as the JAX
         # package's Pallas path; reported scores are the f32 F3 values
+        self.candidate_pairs = [(i, p) for i, p, _, _ in candidates]
         domains = StreamDomains(bank, self.profiles, backend=self.backend)
-        domains_of = domains.define(
-            sequences, [(i, p) for i, p, _, _ in candidates], pack=pack)
+        domains_of = domains.define(sequences, self.candidate_pairs, pack=pack)
         self.host_pairs = domains.host_pairs
 
         hits: List[SequenceHit] = []

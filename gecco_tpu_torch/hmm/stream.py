@@ -38,8 +38,8 @@ from . import engine
 from .bank import NEG, TorchBank
 from .engine import DomainHit, exp_surv
 from .kernels import (
-    SeqPack, _check, _forward_step, _kernel_device, _shift_right, launch_pairs, launch_rows,
-    pair_groups,
+    SeqPack, _check, _forward_step, _kernel_device, _shift_right, check_ranges, launch_pairs,
+    launch_rows, pair_groups, window_rows,
 )
 from .profile import length_model, null1_score
 
@@ -47,7 +47,7 @@ __all__ = [
     "forward_pairs", "forward_pairs_plain",
     "posterior_fwd", "posterior_fwd_plain", "posterior_bwd", "posterior_bwd_plain",
     "envelopes", "align_bwd", "align_bwd_plain", "align_fwd", "align_fwd_plain",
-    "StreamDomains",
+    "DeviceDomains", "StreamDomains", "assemble_domains",
 ]
 
 LOG2 = math.log(2.0)
@@ -60,12 +60,23 @@ _N_REGIONS = 8
 _N_ENVS = 4
 
 
-def forward_pairs(pack: SeqPack, bank: TorchBank, seq_idx, prof_idx) -> torch.Tensor:
-    """Forward scores (nats) of pairs ``(seq_idx[r], prof_idx[r])``, ``[n]``."""
+def forward_pairs(pack: SeqPack, bank: TorchBank, seq_idx, prof_idx,
+                  ranges=None) -> torch.Tensor:
+    """Forward scores (nats) of pairs ``(seq_idx[r], prof_idx[r])``, ``[n]``.
+
+    ``ranges`` (``[n, 2]`` host integers, 0-based half-open, ``0 <= start
+    <= end <= length``) scores residues ``x[start:end]`` of each pair
+    under the whole sequence's length model — ``PairForwardKernel(...,
+    ranges=)``, the envelope-window rescore of ``_pallas_pair_fwd``, not
+    kernel G's envelope Forward, which takes the envelope's own length
+    model.  An empty window scores −inf (what the TPU kernel's ``log(0 +
+    1e-38)`` gives where the subnormal is flushed); an empty sequence
+    without ``ranges`` scores −1e30.
+    """
     if _kernel_device(pack, bank) == "cpu":
-        return forward_pairs_plain(pack, bank, seq_idx, prof_idx)
+        return forward_pairs_plain(pack, bank, seq_idx, prof_idx, ranges=ranges)
     return launch_pairs("gecco_forward_pairs", "forward_pairs", pack, bank,
-                        seq_idx, prof_idx, log_space=False)
+                        seq_idx, prof_idx, log_space=False, ranges=ranges)
 
 
 def _affine_scan_rev(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -86,7 +97,7 @@ def _shift_left(a: torch.Tensor) -> torch.Tensor:
 
 
 def forward_pairs_plain(pack: SeqPack, bank: TorchBank, seq_idx, prof_idx,
-                        chunk: int = 4096) -> torch.Tensor:
+                        chunk: int = 4096, ranges=None) -> torch.Tensor:
     """Plain PyTorch Forward (probability space, rescaled every residue).
 
     The delete chain ``D_k = D_{k-1} tdd_{k-1} + M_{k-1} tmd_{k-1}`` is an
@@ -94,14 +105,15 @@ def forward_pairs_plain(pack: SeqPack, bank: TorchBank, seq_idx, prof_idx,
     """
     device = bank.device
     out = torch.empty(len(seq_idx), dtype=torch.float32, device=device)
-    xs_all = pack.padded()
+    ranges = check_ranges(pack, seq_idx, ranges)
+    if ranges is not None:
+        ranges = torch.as_tensor(ranges, device=device)
     for pos, s, p, W in pair_groups(bank, seq_idx, prof_idx, chunk):
         R = len(pos)
         tr = bank.trans[:, p, :W]
-        lens = pack.lens.long()[s]
+        xs, lens = window_rows(pack, s, None if ranges is None else ranges[pos])
         loop = pack.loops_exp[s][:, None]
         move = pack.moves_exp[s][:, None]
-        xs = xs_all[s]
         zero = torch.zeros((R, W), dtype=torch.float32, device=device)
         col = zero[:, :1]
         shifted_tdd = _shift_right(tr[6], 0.0)
@@ -109,7 +121,8 @@ def forward_pairs_plain(pack: SeqPack, bank: TorchBank, seq_idx, prof_idx,
         N = col + 1.0
         B = move.clone()
         J, C, ls = col.clone(), col.clone(), col.clone()
-        score = torch.full((R, 1), NEG, dtype=torch.float32, device=device)
+        score = torch.full((R, 1), NEG if ranges is None else -math.inf,
+                           dtype=torch.float32, device=device)
         for i in range(int(lens.max()) if R else 0):
             alive = (i < lens)[:, None]
             e = bank.e_odds[xs[:, i], p, :W]
@@ -215,15 +228,23 @@ def posterior_fwd(pack: SeqPack, bank: TorchBank, seq_idx, prof_idx
 def posterior_fwd_plain(pack: SeqPack, bank: TorchBank, seq_idx, prof_idx
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch kernel D: the Forward of :func:`forward_pairs_plain` plus trajectories."""
-    rows = _Rows(pack, bank, seq_idx, prof_idx)
+    traj, score = forward_trajectories(_Rows(pack, bank, seq_idx, prof_idx))
+    return traj[:5], score
+
+
+def forward_trajectories(rows: "_Rows") -> Tuple[torch.Tensor, torch.Tensor]:
+    """``traj [6, n, stride]`` — the rescaled ``N, B, J, C`` after each
+    residue, the running log scale and the rescaled ``E`` (kernel J
+    records it; kernel D's output is the first five) — and the Forward
+    ``score [n]``."""
     v = rows.plain()
     R, W, lens, loop, move = rows.n, v["W"], v["lens"], v["loop"], v["move"]
-    traj = rows.zeros(5, R, rows.stride)
+    traj = rows.zeros(6, R, rows.stride)
     zero = rows.zeros(R, W)
     col = zero[:, :1]
     M, I, D = zero, zero, zero
     N, B, J, C, ls = col + 1.0, move.clone(), col.clone(), col.clone(), col.clone()
-    score = torch.full((R, 1), NEG, dtype=torch.float32, device=bank.device)
+    score = torch.full((R, 1), NEG, dtype=torch.float32, device=rows.bank.device)
     for i in range(int(lens.max()) if R else 0):
         alive = (i < lens)[:, None]
         Mn, In, Dn, Nn, Bn, Jn, Cn, total = _forward_step(
@@ -231,7 +252,8 @@ def posterior_fwd_plain(pack: SeqPack, bank: TorchBank, seq_idx, prof_idx
             v["shifted_tdd"], loop, move)
         inv = 1.0 / total
         ls_n = ls + torch.log(total)
-        for slot, value in enumerate((Nn * inv, Bn * inv, Jn * inv, Cn * inv, ls_n)):
+        E = (Mn + Dn).sum(dim=1, keepdim=True)       # as _forward_step sums it
+        for slot, value in enumerate((Nn * inv, Bn * inv, Jn * inv, Cn * inv, ls_n, E * inv)):
             traj[slot, :, i] = torch.where(alive, value, 0.0)[:, 0]
         done = (i == lens - 1)[:, None]
         score = torch.where(done, torch.log(Cn * inv * move + 1e-38) + ls_n, score)
@@ -317,17 +339,23 @@ def posterior_bwd(pack: SeqPack, bank: TorchBank, seq_idx, prof_idx,
 
 def posterior_bwd_plain(pack: SeqPack, bank: TorchBank, seq_idx, prof_idx,
                         traj: torch.Tensor, score: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch kernel E (``stream.py:278-330``).
+    """Plain PyTorch kernel E (``stream.py:278-330``)."""
+    return backward_posteriors(_Rows(pack, bank, seq_idx, prof_idx), traj, score, 2)
 
-    The forward values one residue back are read at ``o-1`` directly,
-    with ``N=1, J=C=0`` and log scale 0 before the first residue.
+
+def backward_posteriors(rows: "_Rows", traj: torch.Tensor, score: torch.Tensor,
+                        n_post: int) -> torch.Tensor:
+    """``post [n_post, n, stride]``: ``mocc``, ``pB`` and, with ``n_post =
+    3``, the end posterior ``pE = fE bE exp(fls + bls − total)``, ``bE =
+    (bJ + bC) / 2`` (``traj`` is then :func:`forward_trajectories`' six
+    rows).  The forward values one residue back are read at ``o-1``
+    directly, with ``N=1, J=C=0`` and log scale 0 before the first residue.
     """
-    rows = _Rows(pack, bank, seq_idx, prof_idx)
     v = rows.plain()
     loop = v["loop"]
-    post = rows.zeros(2, rows.n, rows.stride)
+    post = rows.zeros(n_post, rows.n, rows.stride)
     total = score[:, None]
-    fN, fB, fJ, fC, flog = traj
+    fN, fB, fJ, fC, flog = traj[:5]
     one = torch.ones_like(loop)
     for o, alive, _init, _bM, _bI, bN, bB, bJ, bC, ls in _backward(rows, v):
         if o == 0:
@@ -344,6 +372,9 @@ def posterior_bwd_plain(pack: SeqPack, bank: TorchBank, seq_idx, prof_idx,
         pB = fB[:, o : o + 1] * bB * sc_cur
         post[0, :, o] = torch.where(alive, mocc, 0.0)[:, 0]
         post[1, :, o] = torch.where(alive, pB, 0.0)[:, 0]
+        if n_post > 2:
+            pE = traj[5][:, o : o + 1] * (0.5 * bJ + 0.5 * bC) * sc_cur
+            post[2, :, o] = torch.where(alive, pE, 0.0)[:, 0]
     return post
 
 
@@ -664,30 +695,32 @@ def _budget_groups(rows, length, row_bytes: int, budget: int):
         yield group
 
 
-class StreamDomains:
-    """Domain definition of (sequence, profile) pairs on one device.
+class DeviceDomains:
+    """Domain definition of (sequence, profile) pairs on one device, in
+    two device stages that a subclass supplies.
 
-    Port of ``gecco_tpu.hmm.stream.StreamDomains.define``: kernels D and
-    E and the envelope finder per width class (split into launches under
-    :attr:`BYTES_BUDGET`, as JAX splits its dispatches), one device-to-host copy of
-    every class's envelopes, the float64 host engine for rows whose
-    envelope slots overflow, kernels F and G over the envelope rows, one
-    more copy, and the ``DomainHit`` assembly of ``stream.py:1679-1726``
-    on the host.  Sequences over 4,096 residues go to the host engine as
-    in JAX (``stream.py:1499-1501``); :attr:`host_pairs` counts the
-    pairs of the last :meth:`define` that did.
+    :meth:`define` runs, per width class and split into launches under
+    :attr:`BYTES_BUDGET`, the posterior stage (:meth:`_posteriors`) and
+    the envelope finder, makes one device-to-host copy of every class's
+    envelopes, sends rows whose envelope slots overflow to the float64
+    host engine, runs the alignment stage (:meth:`_align`) over the
+    envelope rows, makes one more copy, and assembles the ``DomainHit``
+    records on the host (:func:`assemble_domains`).  Pairs that
+    :meth:`_on_device` refuses go to the host engine; :attr:`host_pairs`
+    counts the pairs of the last :meth:`define` that did.
     """
 
     #: per-launch cap on the device memory a group of rows takes (bytes):
-    #: kernel F's bfloat16 planes, or kernels D and E's outputs and the
-    #: envelope finder's temporaries
+    #: the alignment stage's bfloat16 planes, or the posterior stage's
+    #: outputs and the envelope finder's temporaries
     BYTES_BUDGET = 1 << 30
-    #: bytes per row and residue of D and E (7 float32 values) and of the
-    #: ~12 int64/float32 ``[n, stride]`` temporaries of :func:`envelopes`
+    #: bytes per row and residue of the posterior stage (7 float32 values)
+    #: and of the ~12 int64/float32 ``[n, stride]`` temporaries of
+    #: :func:`envelopes`
     POSTERIOR_BYTES = 128
 
     def __init__(self, bank: TorchBank, profiles, backend: str = "cuda"):
-        if backend not in _KERNELS:
+        if backend not in ("cuda", "torch"):
             raise ValueError(f"invalid backend: {backend!r}")
         self.bank = bank
         self.profiles = list(profiles)
@@ -698,11 +731,29 @@ class StreamDomains:
         self.host_pairs += 1
         return engine.define_domains(self.profiles[p], sequences[s])
 
+    def _on_device(self, length: int, width: int) -> bool:
+        """Whether the device stages take a sequence of ``length`` residues
+        against a profile of class ``width``."""
+        return length <= _MAX_LPS
+
+    def _posteriors(self, pack, s_idx, p_idx) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """``(score [n], mocc [n, stride], pB [n, stride])`` of the rows."""
+        raise NotImplementedError
+
+    def _align(self, pack, s_idx, p_idx, iv, jv,
+               total: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(out [n, 22], coords [n, 4])`` of the envelope rows."""
+        raise NotImplementedError
+
+    def _plane_residues(self, sequences, row) -> int:
+        """Residues of the planes the alignment stage keeps for envelope
+        row ``(s, p, ienv, jenv, score)``."""
+        raise NotImplementedError
+
     def define(self, sequences: Sequence["numpy.ndarray"], pairs,
                pack: SeqPack) -> Dict[Tuple[int, int], List[DomainHit]]:
         """Domains of each distinct pair ``(s, p)``, sorted by envelope;
         ``pack`` holds ``sequences`` on the bank's device."""
-        fwd, bwd, abwd, afwd = _KERNELS[self.backend]
         bank = self.bank
         self.host_pairs = 0
         out: Dict[Tuple[int, int], List[DomainHit]] = {}
@@ -712,10 +763,11 @@ class StreamDomains:
             L = len(sequences[s])
             if L == 0:
                 continue                    # no residues, no domains
-            if L > _MAX_LPS:
+            width = int(bank.class_of[p])
+            if not self._on_device(L, width):
                 out[(s, p)] = self._host(sequences, s, p)
                 continue
-            by_class.setdefault(int(bank.class_of[p]), []).append((s, p))
+            by_class.setdefault(width, []).append((s, p))
         if not by_class:
             return out
 
@@ -730,11 +782,9 @@ class StreamDomains:
                                        self.BYTES_BUDGET):
                 s_idx = numpy.asarray([s for s, _ in part])
                 p_idx = numpy.asarray([p for _, p in part])
-                traj, score = fwd(pack, bank, s_idx, p_idx)
-                post = bwd(pack, bank, s_idx, p_idx, traj, score)
-                del traj
+                score, mocc, pb = self._posteriors(pack, s_idx, p_idx)
                 lens = pack.lens[torch.as_tensor(s_idx, device=bank.device)]
-                ienv, jenv, over = envelopes(post[0], post[1], lens)
+                ienv, jenv, over = envelopes(mocc, pb, lens)
                 fetch.append(torch.cat([ienv, jenv, over.to(torch.int32)[:, None],
                                         score.view(torch.int32)[:, None]], 1))
                 groups.append(part)
@@ -762,46 +812,83 @@ class StreamDomains:
         results = []
         for width, rows in sorted(env_rows.items()):
             # two bfloat16 planes per residue and node
-            for part in _budget_groups(rows, length, width * 2 * 2, self.BYTES_BUDGET):
+            for part in _budget_groups(rows, lambda row: self._plane_residues(sequences, row),
+                                       width * 2 * 2, self.BYTES_BUDGET):
                 s_idx, p_idx, iv, jv = (numpy.asarray([row[k] for row in part])
                                         for k in range(4))
                 total = torch.as_tensor(numpy.asarray([row[4] for row in part],
                                                       dtype=numpy.float32), device=bank.device)
-                planes, logs = abwd(pack, bank, s_idx, p_idx)
-                res, coords = afwd(pack, bank, s_idx, p_idx, planes, logs, iv, jv, total)
-                del planes, logs
+                res, coords = self._align(pack, s_idx, p_idx, iv, jv, total)
                 results.append(torch.cat([res, coords.view(torch.float32)], 1))
                 launched.extend(part)
-        if not launched:
-            return out
-        aligned = torch.cat(results).cpu().numpy()
-
-        class_cum: Dict[int, "numpy.ndarray"] = {}
-        for (s, p, ienv, jenv, _score), values in zip(launched, aligned):
-            gm = self.profiles[p]
-            x = sequences[s]
-            L = len(x)
-            if s not in class_cum:
-                onehot = numpy.zeros((L + 1, 21), dtype=numpy.float64)
-                onehot[numpy.arange(1, L + 1), numpy.minimum(x, 20)] = 1.0
-                class_cum[s] = numpy.cumsum(onehot, axis=0)
-            cum = class_cum[s]
-            counts_env = cum[jenv] - cum[ienv - 1]
-            corr = float(counts_env @ values[1:22])
-            loop, _ = length_model(L)
-            env_sc = values[0] + (L - (jenv - ienv + 1)) * loop
-            dombias = float(numpy.logaddexp(0.0, math.log(engine.OMEGA) + corr))
-            bits = (env_sc - (null1_score(L) + dombias)) / LOG2
-            tau, lam = gm.hmm.stats.get("FORWARD", (0.0, LOG2))
-            tf, tt, hf, ht = values[22:26].copy().view(numpy.int32)
-            out[(s, p)].append(DomainHit(
-                ienv=ienv, jenv=jenv,
-                target_from=int(tf), target_to=int(tt),
-                hmm_from=int(hf), hmm_to=int(ht),
-                envsc=float(env_sc), dombias=dombias,
-                bitscore=float(bits),
-                pvalue=float(exp_surv(bits, tau, lam)),
-            ))
-        for key in out:
-            out[key].sort(key=lambda d: (d.ienv, d.jenv))
+        if launched:
+            aligned = torch.cat(results).cpu().numpy()
+            assemble_domains(out, sequences, self.profiles, launched, aligned)
         return out
+
+
+class StreamDomains(DeviceDomains):
+    """Port of ``gecco_tpu.hmm.stream.StreamDomains.define``: kernels D and
+    E are the posterior stage, kernels F and G the alignment stage (split
+    into launches as JAX splits its dispatches), the ``DomainHit``
+    assembly that of ``stream.py:1679-1726``.  Sequences over 4,096
+    residues go to the host engine as in JAX (``stream.py:1499-1501``).
+    Kernel F parks the Backward planes of each row's whole sequence.
+    """
+
+    def _posteriors(self, pack, s_idx, p_idx):
+        fwd, bwd, _abwd, _afwd = _KERNELS[self.backend]
+        traj, score = fwd(pack, self.bank, s_idx, p_idx)
+        post = bwd(pack, self.bank, s_idx, p_idx, traj, score)
+        return score, post[0], post[1]
+
+    def _align(self, pack, s_idx, p_idx, iv, jv, total):
+        _fwd, _bwd, abwd, afwd = _KERNELS[self.backend]
+        planes, logs = abwd(pack, self.bank, s_idx, p_idx)
+        return afwd(pack, self.bank, s_idx, p_idx, planes, logs, iv, jv, total)
+
+    def _plane_residues(self, sequences, row) -> int:
+        return len(sequences[row[0]])
+
+
+def assemble_domains(out: Dict[Tuple[int, int], List[DomainHit]], sequences, profiles,
+                     rows, aligned: "numpy.ndarray") -> None:
+    """Append the ``DomainHit`` of each envelope row to ``out[(s, p)]`` and
+    sort every pair's domains by envelope.
+
+    ``rows[n]`` starts ``(s, p, ienv, jenv)``; ``aligned[n]`` is the row's
+    float32 record from kernel G or K: the envelope Forward score, the 21
+    null2 log-ratios, then the four int32 alignment coordinates viewed as
+    float32.  The arithmetic of ``stream.py:1679-1726`` and
+    ``domains.py:265-291``: the null2 correction is the envelope's
+    residue-class counts times the log-ratios; the envelope score is
+    restored to the whole sequence's length model.
+    """
+    class_cum: Dict[int, "numpy.ndarray"] = {}
+    for (s, p, ienv, jenv, *_rest), values in zip(rows, aligned):
+        gm = profiles[p]
+        x = sequences[s]
+        L = len(x)
+        if s not in class_cum:
+            onehot = numpy.zeros((L + 1, 21), dtype=numpy.float64)
+            onehot[numpy.arange(1, L + 1), numpy.minimum(x, 20)] = 1.0
+            class_cum[s] = numpy.cumsum(onehot, axis=0)
+        cum = class_cum[s]
+        counts_env = cum[jenv] - cum[ienv - 1]
+        corr = float(counts_env @ values[1:22])
+        loop, _ = length_model(L)
+        env_sc = values[0] + (L - (jenv - ienv + 1)) * loop
+        dombias = float(numpy.logaddexp(0.0, math.log(engine.OMEGA) + corr))
+        bits = (env_sc - (null1_score(L) + dombias)) / LOG2
+        tau, lam = gm.hmm.stats.get("FORWARD", (0.0, LOG2))
+        tf, tt, hf, ht = values[22:26].copy().view(numpy.int32)
+        out[(s, p)].append(DomainHit(
+            ienv=ienv, jenv=jenv,
+            target_from=int(tf), target_to=int(tt),
+            hmm_from=int(hf), hmm_to=int(ht),
+            envsc=float(env_sc), dombias=dombias,
+            bitscore=float(bits),
+            pvalue=float(exp_surv(bits, tau, lam)),
+        ))
+    for key in out:
+        out[key].sort(key=lambda d: (d.ienv, d.jenv))

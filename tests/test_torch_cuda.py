@@ -1,10 +1,10 @@
 """The CUDA kernels against their plain versions — needs an NVIDIA card.
 
 Tolerances: max-plus kernels (A, B, H's Viterbi, I) 1e-4 nats; sum-product
-kernels (C-G, H's Forward) and their log scales 1e-3 nats, trajectories
-and posteriors 1e-4 absolute (float32 sums in another order); bfloat16
-planes within one bfloat16 step; envelopes and alignment coordinates
-equal.  Only the port is imported here.
+kernels (C-G, H's Forward, J, K) and their log scales 1e-3 nats,
+trajectories and posteriors 1e-4 absolute (float32 sums in another
+order); bfloat16 planes within one bfloat16 step; envelopes and alignment
+coordinates equal.  Only the port is imported here.
 
 Marked ``cuda``; skipped (with the reason) where no card is present.
 On a machine with one: ``python -m pytest tests/test_torch_cuda.py -q``.
@@ -16,6 +16,8 @@ import torch
 
 from gecco_tpu_torch import _build
 from gecco_tpu_torch.hmm.bank import TorchBank
+from gecco_tpu_torch.hmm.domains import (
+    PairDomains, pair_align, pair_align_plain, pair_posterior, pair_posterior_plain)
 from gecco_tpu_torch.hmm.kernels import (
     SeqPack, dense_scores, dense_scores_plain, msv_filter, msv_filter_plain, ssv_filter,
     ssv_filter_plain, viterbi_pairs, viterbi_pairs_plain)
@@ -200,13 +202,8 @@ def test_align_kernels_match_plain(workload, domain_rows):
         torch.testing.assert_close(coords, want_coords, atol=0, rtol=0)
 
 
-def test_stream_domains_cuda_matches_torch(workload):
-    profiles, seqs, pack, bank = workload
-    pairs = [(s, p) for s in range(len(seqs)) for p in range(len(profiles))]
-    got = StreamDomains(bank, profiles, backend="cuda").define(seqs, pairs, pack=pack)
-    want = StreamDomains(bank, profiles, backend="torch").define(seqs, pairs, pack=pack)
+def _same_domains(got, want):
     assert sorted(got) == sorted(want)
-    assert sum(len(v) for v in want.values()) >= len(seqs) // 2
     for key, doms in want.items():
         assert [(d.ienv, d.jenv, d.target_from, d.target_to, d.hmm_from, d.hmm_to)
                 for d in got[key]] == [
@@ -214,3 +211,98 @@ def test_stream_domains_cuda_matches_torch(workload):
         for a, b in zip(got[key], doms):
             assert a.envsc == pytest.approx(b.envsc, abs=1e-3)
             assert a.bitscore == pytest.approx(b.bitscore, abs=1e-2)
+
+
+def test_stream_domains_cuda_matches_torch(workload):
+    profiles, seqs, pack, bank = workload
+    pairs = [(s, p) for s in range(len(seqs)) for p in range(len(profiles))]
+    got = StreamDomains(bank, profiles, backend="cuda").define(seqs, pairs, pack=pack)
+    want = StreamDomains(bank, profiles, backend="torch").define(seqs, pairs, pack=pack)
+    assert sum(len(v) for v in want.values()) >= len(seqs) // 2
+    _same_domains(got, want)
+
+
+@pytest.mark.parametrize("kernel, plain, tol", [
+    (viterbi_pairs, viterbi_pairs_plain, 1e-4),
+    (forward_pairs, forward_pairs_plain, 1e-3),
+])
+def test_windowed_pair_kernels_match_plain(workload, kernel, plain, tol):
+    """Kernels B and C over residue windows, every width class: a full
+    window equals the launch without ``ranges`` bit for bit, inner windows
+    match the plain version, an empty window scores -inf."""
+    profiles, seqs, pack, bank = workload
+    s_idx = numpy.repeat(numpy.arange(len(seqs)), len(profiles))
+    p_idx = numpy.tile(numpy.arange(len(profiles)), len(seqs))
+    lens = pack.lens_host[s_idx].astype(numpy.int64)
+    whole = kernel(pack, bank, s_idx, p_idx)
+    full = kernel(pack, bank, s_idx, p_idx, ranges=numpy.stack([0 * lens, lens], 1))
+    torch.cuda.synchronize()
+    keep = torch.as_tensor(lens > 0, device=pack.device)
+    assert torch.equal(full[keep], whole[keep])
+    assert torch.isneginf(full[~keep]).all()
+    rng = numpy.random.default_rng(2)
+    start = (rng.random(len(lens)) * lens * 0.5).astype(numpy.int64)
+    end = start + ((rng.random(len(lens)) * (lens - start))).astype(numpy.int64)
+    end[::7] = start[::7]                       # empty windows
+    ranges = numpy.stack([start, end], 1)
+    got = kernel(pack, bank, s_idx, p_idx, ranges=ranges)
+    want = plain(pack, bank, s_idx, p_idx, ranges=ranges)
+    torch.cuda.synchronize()
+    empty = torch.as_tensor(end == start, device=pack.device)
+    assert torch.isneginf(got[empty]).all() and torch.isneginf(want[empty]).all()
+    torch.testing.assert_close(got[~empty], want[~empty], atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("emit_pe", [True, False])
+def test_pair_posterior_kernel_matches_plain(workload, domain_rows, emit_pe):
+    """Kernel J on every width class (128 to 4,096 nodes), one launch a class."""
+    _profiles, _seqs, pack, bank = workload
+    before = _build.launches["pair_posterior"]
+    for s_idx, p_idx in domain_rows:
+        got = pair_posterior(pack, bank, s_idx, p_idx, emit_pe=emit_pe)
+        want = pair_posterior_plain(pack, bank, s_idx, p_idx, emit_pe=emit_pe)
+        _close(got[0], want[0], 1e-3)
+        for a, b in zip(got[1:3], want[1:3]):
+            _close(a, b, 1e-4)
+        if emit_pe:
+            _close(got[3], want[3], 1e-4)
+        else:
+            assert got[3] is None and want[3] is None
+    assert _build.launches["pair_posterior"] == before + len(domain_rows)
+
+
+def test_pair_align_kernel_matches_plain(workload, domain_rows):
+    """Kernel K on every width class: one envelope per row (the first slot
+    found, else the whole sequence)."""
+    _profiles, _seqs, pack, bank = workload
+    before = _build.launches["pair_align"]
+    for s_idx, p_idx in domain_rows:
+        score, mocc, pb, _pe = pair_posterior_plain(pack, bank, s_idx, p_idx, emit_pe=False)
+        lens = pack.lens[torch.as_tensor(s_idx, device=pack.device)]
+        env_i, env_j, _over = envelopes(mocc, pb, lens)
+        ok = env_j >= env_i
+        first = torch.argmax(ok.int(), dim=1, keepdim=True)
+        has = ok.any(dim=1)
+        iv = torch.where(has, env_i.gather(1, first)[:, 0], 1).to(torch.int32)
+        jv = torch.where(has, env_j.gather(1, first)[:, 0], lens).to(torch.int32)
+        keep = (lens > 0).cpu().numpy()
+        s_idx, p_idx = s_idx[keep], p_idx[keep]
+        keep_t = torch.as_tensor(keep, device=pack.device)
+        iv, jv = iv[keep_t].cpu(), jv[keep_t].cpu()
+        score = score[keep_t].contiguous()
+        out, coords = pair_align(pack, bank, s_idx, p_idx, iv, jv, score)
+        want_out, want_coords = pair_align_plain(pack, bank, s_idx, p_idx, iv, jv, score)
+        _close(out, want_out, 1e-3)
+        torch.testing.assert_close(coords, want_coords, atol=0, rtol=0)
+    assert _build.launches["pair_align"] == before + len(domain_rows)
+
+
+def test_pair_domains_cuda_matches_torch_and_stream(workload):
+    profiles, seqs, pack, bank = workload
+    pairs = [(s, p) for s in range(len(seqs)) for p in range(len(profiles))]
+    got = PairDomains(bank, profiles, backend="cuda").define(seqs, pairs, pack=pack)
+    want = PairDomains(bank, profiles, backend="torch").define(seqs, pairs, pack=pack)
+    assert sum(len(v) for v in want.values()) >= len(seqs) // 2
+    _same_domains(got, want)
+    _same_domains(got, StreamDomains(bank, profiles, backend="cuda").define(
+        seqs, pairs, pack=pack))
