@@ -8,10 +8,13 @@ Run from the root of a checkout, with no arguments::
 Phases (each prints its wall seconds, each ends in a device sync):
 
 1. device: require CUDA, print the card's name and power limit, build
-   the kernels from ``gecco_tpu_torch/csrc``;
+   the kernels from ``gecco_tpu_torch/csrc``, print the registers and
+   spills (``nvcc -Xptxas -v``) of every instantiation of kernels A, B
+   and K;
 2. kernels: each CUDA kernel against its plain PyTorch version on the
    card, at the main path's shapes (2,766 Pfam-shaped profiles plus one
-   of 2,100 nodes), with a stated tolerance, timed beside it; the
+   of 2,100 nodes), with a stated tolerance, timed beside it (A, B and
+   I also per width class, from the profiler); the
    domain kernels D-G over 256 proteins with planted domains against
    their planted profiles (the bank's width classes in turn) and against
    the wide profile, one launch per width class as the search makes
@@ -32,8 +35,9 @@ Phases (each prints its wall seconds, each ends in a device sync):
    512 residues with planted domains, 2,766 profiles calibrated by the
    port's own ``calibrate``), launch counts of every kernel, the
    survivor funnel, the pairs whose domains the host engine defined,
-   peak device memory, and the same search on plain PyTorch for the
-   first proteins as a reference;
+   peak device memory, the device ms of kernels A and B per width class
+   (each launched once a class), and the same search on plain PyTorch
+   for the first proteins as a reference;
 4. max-filter search: ``SearchPipeline(max_filter=True,
    backend="cuda").search`` (hmmsearch ``--max``) over the same
    workload, every pair Forward-scored by kernel H: its funnel, launch
@@ -263,6 +267,81 @@ def timed_ms(fn, repeats):
     return result, start.elapsed_time(end) / repeats
 
 
+#: width class (nodes) of a templated ``__global__`` function's arguments:
+#: lanes x nodes a lane, or threads x nodes a thread
+WIDTH_OF = {"ssv_kernel": lambda c: 32 * c, "ssv_kernel_wide": lambda c: 32 * c,
+            "viterbi_kernel": lambda c: 32 * c,
+            "viterbi_kernel_wide": lambda t, c: t * c, "msv_kernel": lambda c: 32 * c,
+            "pair_align_kernel": lambda t, c: t * c}
+#: phase 1's ``-Xptxas -v`` reports: source, ``__global__`` name, instantiations
+REGISTER_REPORTS = (("ssv.cu", "ssv_kernel", 5), ("ssv.cu", "ssv_kernel_wide", 1),
+                    ("viterbi.cu", "viterbi_kernel", 4),
+                    ("viterbi.cu", "viterbi_kernel_wide", 2),
+                    ("pair_align.cu", "pair_align_kernel", 6))
+#: the ``__global__`` functions of each kernel timed by width class
+CLASS_KERNELS = {"ssv_filter": ("ssv_kernel", "ssv_kernel_wide"),
+                 "viterbi_pairs": ("viterbi_kernel", "viterbi_kernel_wide"),
+                 "msv_filter": ("msv_kernel",)}
+
+
+def ptxas_usage(text, name):
+    """``{template arguments: usage}`` of kernel ``name`` in ``nvcc -Xptxas -v``
+    output: registers, stack frame and spill bytes of each instantiation."""
+    found = {}
+    for mangled, stack, stores, loads, regs in re.findall(
+            r"Function properties for (\S+)\n\s*(\d+) bytes stack frame, (\d+) bytes spill "
+            r"stores, (\d+) bytes spill loads\n[^\n]*?Used (\d+) registers", text):
+        match = re.search(rf"{len(name)}{name}I((?:Li\d+E)+)E", mangled)
+        if match:
+            args = tuple(int(a) for a in re.findall(r"Li(\d+)E", match.group(1)))
+            found[args] = {"registers": int(regs), "stack": int(stack),
+                           "spill_stores": int(stores), "spill_loads": int(loads)}
+    return found
+
+
+def phase_registers():
+    """``-Xptxas -v`` registers and spills of every instantiation of kernels
+    A, B and K, one ``nvcc`` a source, side by side."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from gecco_tpu_torch import _build
+
+    sources = sorted({source for source, _name, _count in REGISTER_REPORTS})
+    with ThreadPoolExecutor(len(sources)) as pool:
+        text = dict(zip(sources, pool.map(_build.resource_usage, sources)))
+    for source, name, count in REGISTER_REPORTS:
+        usage = ptxas_usage(text[source], name)
+        require(len(usage) == count,
+                f"nvcc -Xptxas -v reported {len(usage)} instantiations of {name}, not {count}")
+        width = WIDTH_OF[name]
+        print(f"# kernel {name} (-Xptxas -v) " + json.dumps(
+            {f"{width(*args)} nodes ({'x'.join(map(str, args))})": u
+             for args, u in sorted(usage.items(), key=lambda kv: width(*kv[0]))}), flush=True)
+
+
+def class_ms(by_key, label):
+    """Device ms of kernel ``label`` (a wrapper with a ``CLASS_KERNELS``
+    entry) per width class, from :func:`device_ms` of a profiler run."""
+    per_class = {}
+    for name in CLASS_KERNELS[label]:
+        for key, ms in by_key.items():
+            match = re.search(rf"\b{name}<([\d, ]+)>", key)
+            if match:
+                width = WIDTH_OF[name](*(int(a) for a in match.group(1).split(",")))
+                per_class[width] = per_class.get(width, 0.0) + ms
+    return dict(sorted(per_class.items()))
+
+
+def print_class_ms(label, fn):
+    """Run ``fn()`` once under the profiler; print kernel ``label``'s device
+    ms per width class."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    print(f"# kernel {label} per width class (profiler, device ms): "
+          f"{json.dumps(class_ms(device_ms(prof), label))}", flush=True)
+
+
 def phase_kernels(device, report, kernels):
     import warnings
 
@@ -300,13 +379,8 @@ def phase_kernels(device, report, kernels):
     print(f"# kernel msv_filter: largest SSV score above its MSV score {below!r} nats "
           f"(tol {MSV_SSV_TOL})", flush=True)
     require(below <= MSV_SSV_TOL, f"an MSV score is below its SSV score by {below}")
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        msv_filter(pack, bank)
-        torch.cuda.synchronize()
-    per_class = {32 * int(re.search(r"msv_kernel<(\d+)>", key).group(1)): ms
-                 for key, ms in device_ms(prof).items() if "msv_kernel<" in key}
-    print(f"# kernel msv_filter per width class (profiler, device ms): "
-          f"{json.dumps(dict(sorted(per_class.items())))}", flush=True)
+    print_class_ms("ssv_filter", lambda: ssv_filter(pack, bank))
+    print_class_ms("msv_filter", lambda: msv_filter(pack, bank))
 
     # survivor-like pairs: every protein against random profiles, plus
     # every protein against the wide profile
@@ -323,6 +397,7 @@ def phase_kernels(device, report, kernels):
         want, plain_ms = timed_ms(lambda: plain(pack, bank, s_idx, p_idx), 1)
         report(name, [(name, got, want)], ms, plain_ms,
                pair_work(pack, lengths, s_idx, p_idx, FLOPS_PER_CELL[name], 4.0 * len(s_idx)))
+    print_class_ms("viterbi_pairs", lambda: viterbi_pairs(pack, bank, s_idx, p_idx))
     phase_dense_kernel(device, bank, seqs[:DENSE_PROTEINS], report)
     phase_domain_kernels(device, profiles, bank, report, kernels)
 
@@ -578,6 +653,9 @@ def profiled_search(pipeline, seqs, device, path):
     print(f"# device ms (profiler) {json.dumps(per_kernel)}; all device work "
           f"{busy!r} ms of {seconds * 1e3!r} ms, idle share "
           f"{1 - busy / (seconds * 1e3)!r}", flush=True)
+    print("# device ms per width class (profiler) " + json.dumps(
+        {label: class_ms(by_key, label) for label in CLASS_KERNELS if launches[label]}),
+        flush=True)
     print(f"# search: {seconds:.3f} s, {len(hits)} hits, "
           f"{sum(len(h.domains) for h in hits)} domains", flush=True)
     print(f"# stage_counts {json.dumps(pipeline.stage_counts)}", flush=True)
@@ -652,6 +730,9 @@ def phase_search(device, state):
                               backend="cuda")
     hits, launches = profiled_search(pipeline, seqs, device, DEFAULT_PATH)
     candidates = list(pipeline.candidate_pairs)   # before the next search replaces them
+    for name in ("ssv_filter", "viterbi_pairs"):
+        require(launches[name] == len(pipeline.bank.classes),
+                f"{name} made {launches[name]} launches, not one per width class")
     for stage, count in FUNNEL.items():
         require(pipeline.stage_counts.get(stage) == count,
                 f"funnel at {stage}: {pipeline.stage_counts.get(stage)} != {count}")
@@ -903,16 +984,7 @@ def main():
         t0 = time.perf_counter()
         _build.library()
         print(f"# kernels built in {time.perf_counter() - t0:.3f} s", flush=True)
-        # kernel K's registers and spills per thread shape (THREADS x CHUNK nodes)
-        usage = re.findall(
-            r"pair_align_kernelILi(\d+)ELi(\d+)E.*?\n.*?\n\s*(\d+) bytes stack frame, (\d+) bytes "
-            r"spill stores, (\d+) bytes spill loads\n.*?Used (\d+) registers",
-            _build.resource_usage("pair_align.cu"))
-        require(len(usage) == 6, "nvcc -Xptxas -v did not report kernel K's six shapes")
-        print("# kernel pair_align (-Xptxas -v) " + json.dumps(
-            {f"{int(t) * int(c)} nodes ({t}x{c})": {
-                "registers": int(regs), "stack": int(stack), "spill_stores": int(st),
-                "spill_loads": int(ld)} for t, c, stack, st, ld, regs in usage}), flush=True)
+        phase_registers()
     with Phase("2 kernels"):
         phase_kernels(device, report, kernels)
     with Phase("3 search"):

@@ -46,10 +46,12 @@ _SIGNATURES = {
     "gecco_ssv_filter": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P],
     "gecco_msv_filter": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P],
     # xs, offsets, lens, loops, moves, pair_seq, pair_prof, n_pairs,
-    # e, trans, model_len, P, Mp, width, starts, ends (both null for whole
-    # sequences), out, stream
-    "gecco_viterbi_pairs": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P,
-                            _P],
+    # e, trans, model_len, P, Mp, width, blocks, n_blocks (the block
+    # schedule of hmm.kernels.pair_blocks), starts, ends (both null for
+    # whole sequences), out, stream
+    "gecco_viterbi_pairs": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _I, _P,
+                            _P, _P, _P],
+    # the same without blocks and n_blocks
     "gecco_forward_pairs": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P,
                             _P],
     # xs, offsets, lens, loops, moves, n_seqs, e_odds, trans, prof_idx,

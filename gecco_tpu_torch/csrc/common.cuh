@@ -34,6 +34,44 @@ __device__ __forceinline__ float ordered_float(unsigned u) {
     return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
 }
 
+// Maximum over a warp in one instruction (redux.sync on the ordered
+// encoding); exact, like warp_max.
+__device__ __forceinline__ float warp_max_redux(float v) {
+    return ordered_float(__reduce_max_sync(0xffffffffu, ordered_bits(v)));
+}
+
+// The residues of one sequence as a whole warp reads them: aligned 32-bit
+// words that every lane loads from the same address (one broadcast
+// transaction), the word after the current one already in flight.  Call
+// next() once per residue, at most L times, from every lane alike.
+struct ResidueStream {
+    const uint32_t* word;  // the word holding the next residue
+    const uint32_t* last;  // the word holding residue L-1
+    uint32_t cur, nxt;
+    int shift;             // bit offset of the next residue in cur
+
+    __device__ __forceinline__ ResidueStream(const int8_t* x, int L) {
+        const uintptr_t a = reinterpret_cast<uintptr_t>(x);
+        word = reinterpret_cast<const uint32_t*>(a & ~uintptr_t(3));
+        last = reinterpret_cast<const uint32_t*>((a + (L > 0 ? L - 1 : 0)) & ~uintptr_t(3));
+        shift = static_cast<int>(a & 3) * 8;
+        cur = L > 0 ? __ldg(word) : 0u;
+        nxt = L > 0 && word < last ? __ldg(word + 1) : 0u;
+    }
+
+    __device__ __forceinline__ int next() {
+        const int r = static_cast<int>((cur >> shift) & 0xffu);
+        shift += 8;
+        if (shift == 32) {
+            shift = 0;
+            cur = nxt;
+            ++word;
+            nxt = word < last ? __ldg(word + 1) : 0u;
+        }
+        return r;
+    }
+};
+
 // The rows of a domain-definition launch (kernels D-G): row r scores
 // sequence seq[r] against profile prof[r].  Per-row outputs are padded to
 // `stride` residues.  Loops and moves are probabilities.

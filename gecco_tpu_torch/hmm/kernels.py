@@ -47,7 +47,7 @@ from .profile import length_model, null1_score
 
 __all__ = [
     "SeqPack", "ssv_filter", "ssv_filter_plain", "msv_filter", "msv_filter_plain", "pack_mask",
-    "viterbi_pairs", "viterbi_pairs_plain", "flatten_pairs",
+    "viterbi_pairs", "viterbi_pairs_plain", "flatten_pairs", "pair_blocks",
     "dense_scores", "dense_scores_plain",
 ]
 
@@ -57,6 +57,9 @@ LOG_HALF = math.log(0.5)
 _FLT_MIN = float(numpy.finfo(numpy.float32).tiny)
 #: cells (rows x nodes) of one plane of the plain dense scorer
 _PLAIN_CELLS = 1 << 22
+#: most rows of one profile that a block of kernel B takes (its warps take
+#: them in turn); small, so that a class of few pairs still fills the card
+VITERBI_BLOCK_ROWS = 16
 
 
 class SeqPack:
@@ -365,13 +368,45 @@ def check_ranges(pack: SeqPack, seq_idx, ranges):
     return ranges
 
 
+def pair_blocks(class_of, prof, rows_per_block: int):
+    """The rows of a warp-per-pair launch, cut into blocks of one profile.
+
+    ``class_of`` is each profile's width class and ``prof`` each row's
+    profile (host arrays).  Returns ``(order, blocks)``: ``order`` sorts the
+    rows by width class, then profile, stably (a radix sort for banks of
+    up to 65,536 profiles), and ``blocks`` (``[n_blocks, 2]`` int32) gives
+    each block's first row in that order and its row count, at most
+    ``rows_per_block`` rows of one profile.  ``out[order] = scores``
+    restores the input order.
+    """
+    class_of = numpy.asarray(class_of)
+    rank = numpy.empty(len(class_of), dtype=numpy.int64)
+    rank[numpy.argsort(class_of, kind="stable")] = numpy.arange(len(class_of))
+    key = rank[numpy.asarray(prof, dtype=numpy.int64)]
+    key = key.astype(numpy.min_scalar_type(max(len(class_of) - 1, 0)))
+    order = numpy.argsort(key, kind="stable")
+    k = key[order]
+    run_first = numpy.flatnonzero(numpy.concatenate(([True], k[1:] != k[:-1])))
+    run_end = numpy.concatenate((run_first[1:], [len(k)]))
+    per_run = -(-(run_end - run_first) // rows_per_block)
+    run = numpy.repeat(numpy.arange(len(run_first)), per_run)
+    within = numpy.arange(len(run)) - numpy.repeat(numpy.cumsum(per_run) - per_run, per_run)
+    first = run_first[run] + rows_per_block * within
+    count = numpy.minimum(rows_per_block, run_end[run] - first)
+    return order, numpy.stack([first, count], 1).astype(numpy.int32)
+
+
 def launch_pairs(fn_name: str, counter: str, pack: SeqPack, bank: TorchBank,
-                 seq_idx, prof_idx, log_space: bool, ranges=None) -> torch.Tensor:
+                 seq_idx, prof_idx, log_space: bool, ranges=None,
+                 rows_per_block: int = 0) -> torch.Tensor:
     """Launch a pair kernel once per width class; scores in input order.
 
     ``ranges`` (host, checked here before the upload) gives each pair a
     residue window; without it the kernel takes null window pointers and
-    scores whole sequences.
+    scores whole sequences.  With ``rows_per_block`` the rows go in the
+    order of :func:`pair_blocks` and each launch also takes its class's
+    block table and block count before the windows; without it they are
+    ordered by width class alone.
     """
     _check_pack_bank(pack, bank, log_space)
     seq_idx = numpy.asarray(seq_idx, dtype=numpy.int64)
@@ -386,7 +421,10 @@ def launch_pairs(fn_name: str, counter: str, pack: SeqPack, bank: TorchBank,
         raise IndexError("pair profile index out of range")
     ranges = check_ranges(pack, seq_idx, ranges)
     width = bank.class_of[prof_idx]
-    order = numpy.argsort(width, kind="stable")
+    if rows_per_block:
+        order, blocks = pair_blocks(bank.class_of, prof_idx, rows_per_block)
+    else:
+        order = numpy.argsort(width, kind="stable")
     seq_t = torch.as_tensor(seq_idx[order].astype(numpy.int32), device=bank.device)
     prof_t = torch.as_tensor(prof_idx[order].astype(numpy.int32), device=bank.device)
     if ranges is None:
@@ -398,9 +436,15 @@ def launch_pairs(fn_name: str, counter: str, pack: SeqPack, bank: TorchBank,
     scores = torch.empty(n, dtype=torch.float32, device=bank.device)
     bounds = numpy.flatnonzero(numpy.diff(width[order])) + 1
     for a, b in zip(numpy.concatenate(([0], bounds)), numpy.concatenate((bounds, [n]))):
+        table = ()
+        if rows_per_block:   # the class's blocks, their first rows counted from a
+            lo, hi = numpy.searchsorted(blocks[:, 0], [a, b])
+            mine = blocks[lo:hi].copy()
+            mine[:, 0] -= a
+            table = (torch.as_tensor(mine, device=bank.device), len(mine))
         window = (None, None) if ranges is None else (starts[a:b], ends[a:b])
         launch_rows(fn_name, counter, pack, bank, seq_t[a:b], prof_t[a:b],
-                    int(width[order[a]]), *window, scores[a:b], log_space=log_space)
+                    int(width[order[a]]), *table, *window, scores[a:b], log_space=log_space)
     out[torch.as_tensor(order, device=bank.device)] = scores
     return out
 
@@ -450,7 +494,8 @@ def viterbi_pairs(pack: SeqPack, bank: TorchBank, seq_idx, prof_idx,
     if _kernel_device(pack, bank) == "cpu":
         return viterbi_pairs_plain(pack, bank, seq_idx, prof_idx, ranges=ranges)
     return launch_pairs("gecco_viterbi_pairs", "viterbi_pairs", pack, bank,
-                        seq_idx, prof_idx, log_space=True, ranges=ranges)
+                        seq_idx, prof_idx, log_space=True, ranges=ranges,
+                        rows_per_block=VITERBI_BLOCK_ROWS)
 
 
 def viterbi_pairs_plain(pack: SeqPack, bank: TorchBank, seq_idx, prof_idx,

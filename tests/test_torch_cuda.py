@@ -15,12 +15,12 @@ import pytest
 import torch
 
 from gecco_tpu_torch import _build
-from gecco_tpu_torch.hmm.bank import TorchBank
+from gecco_tpu_torch.hmm.bank import NEG, TorchBank
 from gecco_tpu_torch.hmm.domains import (
     PairDomains, pair_align, pair_align_plain, pair_posterior, pair_posterior_plain)
 from gecco_tpu_torch.hmm.kernels import (
-    SeqPack, dense_scores, dense_scores_plain, msv_filter, msv_filter_plain, ssv_filter,
-    ssv_filter_plain, viterbi_pairs, viterbi_pairs_plain)
+    VITERBI_BLOCK_ROWS, SeqPack, dense_scores, dense_scores_plain, msv_filter, msv_filter_plain,
+    ssv_filter, ssv_filter_plain, viterbi_pairs, viterbi_pairs_plain)
 from gecco_tpu_torch.hmm.pipeline import SearchPipeline
 from gecco_tpu_torch.hmm.synthetic import (
     consensus_proteins, plant_domain, synthetic_profiles, synthetic_proteins)
@@ -91,6 +91,110 @@ def test_msv_kernel_matches_plain(workload):
     assert _build.launches["msv_filter"] == before + len(bank.classes)
     torch.testing.assert_close(got, msv_filter_plain(pack, bank), atol=1e-4, rtol=0)
     assert (got >= ssv_filter(pack, bank) - 1e-4).all()
+
+
+#: model lengths of the edge bank: 33 and 95, each width class's width - 1
+#: and width, and 129 across the 128/129 boundary
+EDGE_MODELS = (33, 95, 127, 128, 129, 255, 256, 511, 512, 1023, 1024, 2047, 2048, 4095, 4096)
+#: sequence lengths around a warp's 32 lanes and a 4-byte word of residues
+EDGE_SEQS = (0, 1, 31, 32, 33, 2000)
+
+
+@pytest.fixture(scope="module")
+def edge_workload(device):
+    """Kernels A and B at their edges: every width class 128 to 4,096 with
+    the models of ``EDGE_MODELS``, the sequences of ``EDGE_SEQS`` (each
+    but the first two a consensus run ending on a profile's last node: of
+    33, 128, 129 and 4,096 nodes) and 40 proteins with planted domains,
+    more than kernel A's tile of 32 sequences."""
+    profiles = [gm for seed, m in enumerate(EDGE_MODELS)
+                for gm in synthetic_profiles(1, min_length=m, max_length=m, seed=20 + seed)]
+    by_length = {gm.M: gm for gm in profiles}
+    rng = numpy.random.default_rng(3)
+
+    def tail(m, n):
+        """Consensus of the last ``n`` nodes of the ``m``-node profile."""
+        cons = numpy.argmax(by_length[m].hmm.match[1:, :20], axis=1).astype(numpy.int32)
+        return cons[m - n:]
+
+    seqs = [numpy.zeros(0, dtype=numpy.int32), rng.integers(0, 20, 1).astype(numpy.int32),
+            tail(33, 31), tail(128, 32), tail(129, 33), tail(4096, 2000)]
+    assert tuple(map(len, seqs)) == EDGE_SEQS
+    for i, x in enumerate(synthetic_proteins(40, mean_length=300, seed=12)):
+        gm = profiles[i % len(profiles)]
+        seqs.append(plant_domain(x, gm, rng, max_len=min(gm.M, 200), divergence=0.2))
+    bank = TorchBank.build(profiles, device)
+    assert [w for w, _ in bank.classes] == [128, 256, 512, 1024, 2048, 4096]
+    return profiles, seqs, SeqPack(seqs, device), bank
+
+
+def test_ssv_kernel_edges(edge_workload):
+    """Kernel A against its plain version on the edge bank: every class,
+    one launch a class; the largest difference is printed (0.0 expected)."""
+    _profiles, _seqs, pack, bank = edge_workload
+    before = _build.launches["ssv_filter"]
+    got = ssv_filter(pack, bank)
+    torch.cuda.synchronize()
+    assert _build.launches["ssv_filter"] == before + len(bank.classes)
+    want = ssv_filter_plain(pack, bank)
+    err = float((got - want).abs().max())
+    print(f"kernel A on the edge bank: largest difference {err!r} nats")
+    assert err <= 1e-4
+    assert (got[0] == NEG).all()                  # the empty sequence
+
+
+def _edge_pairs(n_seqs, n_profiles):
+    """One pair of the 33-node profile (the 2,000-residue sequence), every
+    sequence against the 95-node profile (more rows than a block of
+    kernel B takes), and each other profile against the edge sequences and
+    four proteins."""
+    s, p = [len(EDGE_SEQS) - 1], [0]
+    s += list(range(n_seqs))
+    p += [1] * n_seqs
+    proteins = n_seqs - len(EDGE_SEQS)
+    for q in range(2, n_profiles):
+        mine = list(range(len(EDGE_SEQS))) + [len(EDGE_SEQS) + (3 * q + i) % proteins
+                                               for i in range(4)]
+        s += mine
+        p += [q] * len(mine)
+    return numpy.array(s), numpy.array(p)
+
+
+@pytest.mark.parametrize("windows", [False, True], ids=["whole", "windows"])
+def test_viterbi_kernel_edges(edge_workload, windows):
+    """Kernel B against its plain version on the edge bank, every class in
+    one launch each; with windows, empty ones (-inf) and ``[0, L)`` ones
+    (equal to the launch without ``ranges``).  The largest difference is
+    printed (0.0 expected)."""
+    profiles, seqs, pack, bank = edge_workload
+    s_idx, p_idx = _edge_pairs(len(seqs), len(profiles))
+    assert (p_idx == 1).sum() > VITERBI_BLOCK_ROWS and (p_idx == 0).sum() == 1
+    lens = pack.lens_host[s_idx].astype(numpy.int64)
+    ranges = None
+    if windows:
+        rng = numpy.random.default_rng(4)
+        start = (rng.random(len(lens)) * lens).astype(numpy.int64)
+        end = start + (rng.random(len(lens)) * (lens - start)).astype(numpy.int64)
+        end[::5] = start[::5]                       # empty windows
+        start[1::5], end[1::5] = 0, lens[1::5]      # [0, L) windows
+        ranges = numpy.stack([start, end], 1)
+    before = _build.launches["viterbi_pairs"]
+    got = viterbi_pairs(pack, bank, s_idx, p_idx, ranges=ranges)
+    torch.cuda.synchronize()
+    assert _build.launches["viterbi_pairs"] == before + len(bank.classes)
+    want = viterbi_pairs_plain(pack, bank, s_idx, p_idx, ranges=ranges)
+    finite = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), finite)
+    err = float((got[finite] - want[finite]).abs().max())
+    print(f"kernel B on the edge bank ({'windows' if windows else 'whole sequences'}): "
+          f"largest difference {err!r} nats")
+    assert err <= 1e-4
+    if windows:
+        empty = torch.as_tensor(ranges[:, 0] == ranges[:, 1], device=pack.device)
+        assert torch.isneginf(got[empty]).all()
+        full = torch.as_tensor((ranges[:, 0] == 0) & (ranges[:, 1] == lens) & (lens > 0),
+                               device=pack.device)
+        assert torch.equal(got[full], viterbi_pairs(pack, bank, s_idx, p_idx)[full])
 
 
 @pytest.mark.parametrize("kernel, plain, tol", [

@@ -21,7 +21,7 @@ from gecco_tpu.hmm.synthetic import plant_domain, synthetic_profiles, synthetic_
 
 from gecco_tpu_torch.hmm.bank import NEG, TorchBank, width_class
 from gecco_tpu_torch.hmm.kernels import (
-    SeqPack, flatten_pairs, pack_mask, ssv_filter, viterbi_pairs)
+    SeqPack, flatten_pairs, pack_mask, pair_blocks, ssv_filter, viterbi_pairs)
 from gecco_tpu_torch.hmm.profile import profiles_from_arrays
 from gecco_tpu_torch.hmm.stream import forward_pairs
 from gecco_tpu_torch.hmm.synthetic import consensus_proteins
@@ -164,6 +164,41 @@ def test_viterbi_pairs_wide_profile():
     mine = viterbi_pairs(SeqPack(seqs, "cpu"), bank, s_arr, p_arr).numpy()
     reference = numpy.asarray(batch.viterbi_scores(host, seqs))
     numpy.testing.assert_allclose(mine, reference[s_arr, p_arr], atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_pair_blocks_schedule(seed):
+    """Kernel B's block schedule: every row in exactly one block, no block
+    across two profiles or width classes or over its row cap, the classes
+    in order, and the inverse permutation back to input order."""
+    rng = numpy.random.default_rng(seed)
+    n, P, cap = int(rng.integers(1, 400)), int(rng.integers(1, 30)), int(rng.integers(1, 20))
+    class_of = numpy.array([width_class(m) for m in rng.integers(1, 4097, P)])
+    prof = rng.integers(0, P, n)
+    order, blocks = pair_blocks(class_of, prof, cap)
+    assert blocks.dtype == numpy.int32 and blocks.shape[1] == 2
+    assert sorted(order.tolist()) == list(range(n))
+    first, count = blocks[:, 0], blocks[:, 1]
+    assert (count >= 1).all() and (count <= cap).all()
+    covered = numpy.zeros(n, dtype=int)
+    for f, c in blocks:
+        rows = order[f : f + c]
+        covered[f : f + c] += 1
+        assert len(set(prof[rows].tolist())) == 1
+        assert (numpy.diff(rows) > 0).all()       # stable within a profile
+    assert (covered == 1).all()
+    assert (numpy.diff(first) > 0).all()
+    # a class's rows are contiguous, so each launch takes a run of blocks
+    assert (numpy.diff(class_of[prof[order]]) >= 0).all()
+    # scores of the rows in launch order, scattered back as launch_pairs does
+    out = numpy.empty(n, dtype=numpy.int64)
+    out[order] = prof[order]
+    numpy.testing.assert_array_equal(out, prof)
+
+
+def test_pair_blocks_empty():
+    order, blocks = pair_blocks(numpy.array([128, 256]), numpy.zeros(0, dtype=int), 16)
+    assert order.shape == (0,) and blocks.shape == (0, 2)
 
 
 def test_forward_pairs_match_pallas_and_host(workload):
