@@ -9,12 +9,14 @@ Phases (each prints its wall seconds, each ends in a device sync):
 
 1. device: require CUDA, print the card's name and power limit, build
    the kernels from ``gecco_tpu_torch/csrc``, print the registers and
-   spills (``nvcc -Xptxas -v``) of every instantiation of kernels A, B
-   and K;
+   spills (``nvcc -Xptxas -v``) of every instantiation of kernels A, B,
+   H (both semirings) and K;
 2. kernels: each CUDA kernel against its plain PyTorch version on the
    card, at the main path's shapes (2,766 Pfam-shaped profiles plus one
-   of 2,100 nodes), with a stated tolerance, timed beside it (A, B and
-   I also per width class, from the profiler); the
+   of 2,100 nodes), with a stated tolerance, timed beside it (A, H and
+   I also per width class, each class launched alone between CUDA
+   events, H with each class's cells and rates; B per width class from
+   the profiler); the
    domain kernels D-G over 256 proteins with planted domains against
    their planted profiles (the bank's width classes in turn) and against
    the wide profile, one launch per width class as the search makes
@@ -40,10 +42,15 @@ Phases (each prints its wall seconds, each ends in a device sync):
    for the first proteins as a reference;
 4. max-filter search: ``SearchPipeline(max_filter=True,
    backend="cuda").search`` (hmmsearch ``--max``) over the same
-   workload, every pair Forward-scored by kernel H: its funnel, launch
-   counts, the candidates that reach domain definition, peak device
-   memory, its hits against the default search's (a superset) and
-   against the same search on plain PyTorch for the first proteins;
+   workload, every pair Forward-scored by kernel H (one launch a width
+   class): its funnel, launch counts, the candidates that reach domain
+   definition (210,321, and 186,503 reported, as recorded), H's
+   device ms, cells and rates per width class, peak device memory, its
+   hits against the default search's (a superset) and against the same
+   search on plain PyTorch for the first proteins; then H alone over the
+   whole pack in both semirings, per width class between CUDA events,
+   with rows of its first, middle and last tiles (the ragged last tile
+   whole) held against the plain version;
 5. MSV search: ``SearchPipeline(filter_stage="msv", backend="cuda")``
    (HMMER 3.0's multi-segment filter, kernel I, in place of kernel A)
    over the same workload: its funnel (F1 at least the default's, since
@@ -74,6 +81,8 @@ and the JAX package are blocked from import: the port and this script
 must run without them.
 """
 
+import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -96,6 +105,9 @@ DOMAIN_PROTEINS = 256
 DENSE_PROTEINS = 32
 #: the survivor funnel of the search through F3 (``stage_counts``)
 FUNNEL = {"pairs": 8339490, "F1": 417790, "F2": 31893, "F3": 1800}
+#: the ``max_filter`` search's candidates and reported hits (measured on
+#: the H100 since kernel H was first ported)
+MAX_FILTER_FUNNEL = {"F3": 210321, "reported": 186503}
 #: the same with ``filter_stage="msv"`` (measured on the H100)
 MSV_FUNNEL = {"pairs": 8339490, "F1": 417859, "F2": 31908, "F3": 1813}
 #: proteins of the searches held against the plain PyTorch search
@@ -179,6 +191,9 @@ FLOPS_PER_CELL = {"ssv_filter": 4, "msv_filter": 3, "viterbi_pairs": 15, "forwar
 #: float32 planes a Forward/Backward kernel reads per node of a profile
 #: (21 emission rows and 8 transitions)
 PLANES = 29
+#: seconds between opening a measured profiler trace and the work it
+#: measures (:func:`device_trace`)
+TRACE_LEAD_S = 1.0
 
 
 def require(condition, message):
@@ -232,14 +247,19 @@ def all_pairs_work(pack, lengths, per_cell, planes=PLANES):
     return cells * per_cell, nbytes
 
 
-def start_profiler():
-    """One throwaway ``torch.profiler`` trace around a small kernel.  The
-    first launches of a trace that follows minutes without one were seen
-    to go unrecorded (kernel A's five launches of the first search), so each
-    measured trace is opened right after this one."""
+@contextlib.contextmanager
+def device_trace():
+    """A device-only ``torch.profiler`` trace for measured work.  The first
+    launches of a trace were seen to go unrecorded (kernel A's five of a
+    search; kernel H's first one or two width classes in phase 2, after a
+    throwaway trace), so the trace opens right after a throwaway one and
+    its body starts ``TRACE_LEAD_S`` seconds after it opens."""
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]):
         torch.zeros(1024, device="cuda").sum()
         torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_LEAD_S)
+        yield prof
 
 
 def device_ms(prof):
@@ -269,19 +289,23 @@ def timed_ms(fn, repeats):
 
 #: width class (nodes) of a templated ``__global__`` function's arguments:
 #: lanes x nodes a lane, or threads x nodes a thread
+#: (kernel H's last template argument is its semiring, 1 for Viterbi)
 WIDTH_OF = {"ssv_kernel": lambda c: 32 * c, "ssv_kernel_wide": lambda c: 32 * c,
             "viterbi_kernel": lambda c: 32 * c,
             "viterbi_kernel_wide": lambda t, c: t * c, "msv_kernel": lambda c: 32 * c,
-            "pair_align_kernel": lambda t, c: t * c}
+            "pair_align_kernel": lambda t, c: t * c,
+            "dense_kernel": lambda c, v: 32 * c, "dense_kernel_wide": lambda t, c, v: t * c}
 #: phase 1's ``-Xptxas -v`` reports: source, ``__global__`` name, instantiations
 REGISTER_REPORTS = (("ssv.cu", "ssv_kernel", 5), ("ssv.cu", "ssv_kernel_wide", 1),
                     ("viterbi.cu", "viterbi_kernel", 4),
                     ("viterbi.cu", "viterbi_kernel_wide", 2),
-                    ("pair_align.cu", "pair_align_kernel", 6))
+                    ("pair_align.cu", "pair_align_kernel", 6),
+                    ("dense.cu", "dense_kernel", 8), ("dense.cu", "dense_kernel_wide", 4))
 #: the ``__global__`` functions of each kernel timed by width class
 CLASS_KERNELS = {"ssv_filter": ("ssv_kernel", "ssv_kernel_wide"),
                  "viterbi_pairs": ("viterbi_kernel", "viterbi_kernel_wide"),
-                 "msv_filter": ("msv_kernel",)}
+                 "msv_filter": ("msv_kernel",),
+                 "dense_scores": ("dense_kernel", "dense_kernel_wide")}
 
 
 def ptxas_usage(text, name):
@@ -301,7 +325,7 @@ def ptxas_usage(text, name):
 
 def phase_registers():
     """``-Xptxas -v`` registers and spills of every instantiation of kernels
-    A, B and K, one ``nvcc`` a source, side by side."""
+    A, B, H and K, one ``nvcc`` a source, side by side."""
     from concurrent.futures import ThreadPoolExecutor
 
     from gecco_tpu_torch import _build
@@ -333,13 +357,42 @@ def class_ms(by_key, label):
 
 
 def print_class_ms(label, fn):
-    """Run ``fn()`` once under the profiler; print kernel ``label``'s device
-    ms per width class."""
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    """Run ``fn()`` once under :func:`device_trace`; print kernel ``label``'s
+    device ms per width class."""
+    with device_trace() as prof:
         fn()
         torch.cuda.synchronize()
     print(f"# kernel {label} per width class (profiler, device ms): "
           f"{json.dumps(class_ms(device_ms(prof), label))}", flush=True)
+
+
+def class_events_ms(fn, bank, repeats):
+    """Device ms per width class of ``fn(bank)``, a wrapper that launches
+    once a width class of ``bank``: each class alone (a bank of that class
+    only) between CUDA events, the mean of ``repeats`` after a warm-up."""
+    return {width: timed_ms(lambda: fn(dataclasses.replace(bank, classes=[(width, idx)])),
+                            repeats)[1]
+            for width, idx in bank.classes}
+
+
+def print_class_rates(label, per_class, pack, bank):
+    """Kernel H's device ms per width class of an all-pairs launch beside
+    the class's DP cells: real (model lengths) and computed
+    (``hmm.kernels.dense_nodes``), and the rates they give."""
+    from gecco_tpu_torch.hmm.kernels import dense_nodes
+
+    residues = float(pack.lens_host.sum())
+    lengths, nodes = bank.host.lengths.astype(numpy.float64), dense_nodes(bank)
+    rates = {}
+    for width, idx in bank.classes:
+        ms = per_class.get(width)
+        idx = idx.cpu().numpy()
+        cells = residues * float(lengths[idx].sum())
+        computed = residues * float(nodes[idx].sum())
+        rates[width] = {"ms": ms, "cells": cells, "computed_cells": computed,
+                        "Gcells_per_s": cells / ms / 1e6 if ms else None,
+                        "computed_Gcells_per_s": computed / ms / 1e6 if ms else None}
+    print(f"# kernel {label} rates per width class: {json.dumps(rates)}", flush=True)
 
 
 def phase_kernels(device, report, kernels):
@@ -379,8 +432,10 @@ def phase_kernels(device, report, kernels):
     print(f"# kernel msv_filter: largest SSV score above its MSV score {below!r} nats "
           f"(tol {MSV_SSV_TOL})", flush=True)
     require(below <= MSV_SSV_TOL, f"an MSV score is below its SSV score by {below}")
-    print_class_ms("ssv_filter", lambda: ssv_filter(pack, bank))
-    print_class_ms("msv_filter", lambda: msv_filter(pack, bank))
+    for name, kernel in (("ssv_filter", ssv_filter), ("msv_filter", msv_filter)):
+        per_class = class_events_ms(lambda b: kernel(pack, b), bank, 3)
+        print(f"# kernel {name} per width class (CUDA events, ms): {json.dumps(per_class)}",
+              flush=True)
 
     # survivor-like pairs: every protein against random profiles, plus
     # every protein against the wide profile
@@ -441,6 +496,8 @@ def phase_dense_kernel(device, bank, seqs, report):
     for semiring, pair_kernel in (("forward", forward_pairs), ("viterbi", viterbi_pairs)):
         viterbi = semiring == "viterbi"
         got, ms = timed_ms(lambda: dense_scores(pack, bank, viterbi=viterbi), 3)
+        per_class = class_events_ms(lambda b: dense_scores(pack, b, viterbi=viterbi), bank, 3)
+        print_class_rates(f"dense_scores ({semiring}, CUDA events)", per_class, pack, bank)
         want, plain_ms = timed_ms(lambda: dense_scores_plain(pack, bank, viterbi=viterbi), 1)
         checks.append((f"dense_{semiring}", got, want))
         timings[semiring] = (ms, plain_ms, all_pairs_work(
@@ -632,15 +689,15 @@ def profiled_search(pipeline, seqs, device, path):
     """One search with the launch counts set to 0 just before it and read
     just after, under ``torch.profiler`` (device activity only); prints its
     accounting and requires every kernel of ``path`` to have launched and
-    every hit to be well formed.  Returns the hits and the launch counts."""
+    every hit to be well formed.  Returns the hits, the launch counts and
+    the device ms per width class of each ``CLASS_KERNELS`` kernel."""
     from gecco_tpu_torch import _build
 
     _ = pipeline.bank  # upload outside the timed search
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
-    start_profiler()
-    _build.reset_launches()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    with device_trace() as prof:
+        _build.reset_launches()
         t0 = time.perf_counter()
         hits = pipeline.search(seqs)
         torch.cuda.synchronize()
@@ -653,9 +710,8 @@ def profiled_search(pipeline, seqs, device, path):
     print(f"# device ms (profiler) {json.dumps(per_kernel)}; all device work "
           f"{busy!r} ms of {seconds * 1e3!r} ms, idle share "
           f"{1 - busy / (seconds * 1e3)!r}", flush=True)
-    print("# device ms per width class (profiler) " + json.dumps(
-        {label: class_ms(by_key, label) for label in CLASS_KERNELS if launches[label]}),
-        flush=True)
+    classes = {label: class_ms(by_key, label) for label in CLASS_KERNELS if launches[label]}
+    print(f"# device ms per width class (profiler) {json.dumps(classes)}", flush=True)
     print(f"# search: {seconds:.3f} s, {len(hits)} hits, "
           f"{sum(len(h.domains) for h in hits)} domains", flush=True)
     print(f"# stage_counts {json.dumps(pipeline.stage_counts)}", flush=True)
@@ -681,7 +737,7 @@ def profiled_search(pipeline, seqs, device, path):
                    and 1 <= d.hmm_from <= d.hmm_to <= h.profile.M
                    and numpy.isfinite(d.bitscore))]
     require(not bad, f"malformed domains {bad[:5]}")
-    return hits, launches
+    return hits, launches, classes
 
 
 def compare_with_plain(pipeline, profiles, head, device, **options):
@@ -728,7 +784,7 @@ def phase_search(device, state):
 
     pipeline = SearchPipeline(profiles, device=device, Z=N_PROFILES, domZ=N_PROFILES,
                               backend="cuda")
-    hits, launches = profiled_search(pipeline, seqs, device, DEFAULT_PATH)
+    hits, launches, _classes = profiled_search(pipeline, seqs, device, DEFAULT_PATH)
     candidates = list(pipeline.candidate_pairs)   # before the next search replaces them
     for name in ("ssv_filter", "viterbi_pairs"):
         require(launches[name] == len(pipeline.bank.classes),
@@ -750,7 +806,9 @@ def phase_max_filter(device, state):
     profiles, seqs = state["profiles"], state["seqs"]
     pipeline = SearchPipeline(profiles, device=device, Z=N_PROFILES, domZ=N_PROFILES,
                               max_filter=True, backend="cuda")
-    hits, launches = profiled_search(pipeline, seqs, device, MAX_FILTER_PATH)
+    hits, launches, classes = profiled_search(pipeline, seqs, device, MAX_FILTER_PATH)
+    require(launches["dense_scores"] == len(pipeline.bank.classes),
+            f"dense_scores made {launches['dense_scores']} launches, not one per width class")
     pairs = FUNNEL["pairs"]
     require(pipeline.stage_counts["F1"] == pipeline.stage_counts["F2"] == pairs,
             f"max_filter funnel {pipeline.stage_counts} does not pass all {pairs} pairs")
@@ -763,12 +821,66 @@ def phase_max_filter(device, state):
     print(f"# max_filter: {pipeline.stage_counts['F3']} candidate pairs reached domain "
           f"definition; {len(got)} hits, {len(got - state['hits'])} beyond the default "
           f"search's {len(state['hits'])}", flush=True)
-    work = all_pairs_work(SeqPack(seqs, device), pipeline.bank.lengths.cpu().numpy(),
+    moved = {key: pipeline.stage_counts[key] - count
+             for key, count in MAX_FILTER_FUNNEL.items()}
+    print(f"# max_filter against the record {json.dumps(MAX_FILTER_FUNNEL)}: "
+          f"{json.dumps(moved)}", flush=True)
+    require(not any(moved.values()), f"max_filter funnel moved from the record: {moved}")
+    pack = SeqPack(seqs, device)
+    print_class_rates("dense_scores on the search (profiler)",
+                      classes.get("dense_scores", {}), pack, pipeline.bank)
+    work = all_pairs_work(pack, pipeline.bank.lengths.cpu().numpy(),
                           FLOPS_PER_CELL["dense_forward"])
     print(f"# kernel dense_scores on the search: {json.dumps(bound(*work))} "
           f"({work[0]!r} flops, {work[1]!r} bytes)", flush=True)
+    check_dense_whole_pack(pack, pipeline.bank)
     compare_with_plain(pipeline, profiles, seqs[:HEAD], device, max_filter=True)
     state.update(max_launches=launches)
+
+
+def tile_rows(S, tile, seed=7, extra=9):
+    """Rows of a pack of ``S`` sequences whose kernel H scores are held
+    against the plain version: the first two and last two rows of the
+    first, second, middle and last full tiles of ``tile`` sequences, the
+    whole last tile (ragged where ``tile`` does not divide ``S``), and
+    ``extra`` rows drawn from a seeded generator."""
+    n_tiles = -(-S // tile)
+    rows = set(range((n_tiles - 1) * tile, S))
+    for t in sorted({0, 1, n_tiles // 2, n_tiles - 2} - {-1, n_tiles - 1}):
+        rows |= {t * tile, t * tile + 1, (t + 1) * tile - 2, (t + 1) * tile - 1}
+    rows |= set(numpy.random.default_rng(seed).choice(S, min(extra, S), replace=False).tolist())
+    return sorted(r for r in rows if 0 <= r < S)
+
+
+def check_dense_whole_pack(pack, bank):
+    """Kernel H over the search's whole pack in both semirings: its device
+    ms per width class (CUDA events) with rates, and the rows of
+    :func:`tile_rows` (full tiles, their block offsets and the ragged last
+    tile) held against the plain version on those sequences."""
+    from gecco_tpu_torch.hmm.kernels import (
+        DENSE_TILE, SeqPack, dense_scores, dense_scores_plain)
+
+    rows = tile_rows(pack.S, DENSE_TILE)
+    xs, lens = pack.xs.cpu().numpy(), pack.lens_host
+    offsets = pack.offsets.cpu().numpy()
+    sample = SeqPack([xs[offsets[r]:offsets[r] + lens[r]] for r in rows], pack.device)
+    tiles = sorted({r // DENSE_TILE for r in rows})
+    for semiring in ("forward", "viterbi"):
+        viterbi = semiring == "viterbi"
+        per_class = class_events_ms(lambda b: dense_scores(pack, b, viterbi=viterbi), bank, 1)
+        print_class_rates(f"dense_scores ({semiring}) on the whole pack (CUDA events)",
+                          per_class, pack, bank)
+        got = dense_scores(pack, bank, viterbi=viterbi)[torch.as_tensor(rows, device=pack.device)]
+        want = dense_scores_plain(sample, bank, viterbi=viterbi)
+        finite = torch.isfinite(want)
+        require(bool(torch.equal(torch.isfinite(got), finite)),
+                f"dense {semiring}: non-finite scores differ from the plain version's")
+        err = float((got[finite] - want[finite]).abs().max())
+        tol = TOL[f"dense_{semiring}"]
+        print(f"# kernel dense_scores ({semiring}) on the whole pack ({pack.S} proteins, "
+              f"tiles of {DENSE_TILE}): {len(rows)} rows of tiles {tiles} against the plain "
+              f"version: max abs {err!r} (tol {tol})", flush=True)
+        require(err <= tol, f"dense {semiring} on the whole pack disagrees with plain: {err}")
 
 
 def phase_msv_search(device, state):
@@ -781,7 +893,7 @@ def phase_msv_search(device, state):
     profiles, seqs = state["profiles"], state["seqs"]
     pipeline = SearchPipeline(profiles, device=device, Z=N_PROFILES, domZ=N_PROFILES,
                               filter_stage="msv", backend="cuda")
-    hits, launches = profiled_search(pipeline, seqs, device, MSV_PATH)
+    hits, launches, _classes = profiled_search(pipeline, seqs, device, MSV_PATH)
     counts = pipeline.stage_counts
     require(launches["msv_filter"] == len(pipeline.bank.classes),
             f"msv_filter made {launches['msv_filter']} launches, not one per width class")
@@ -825,9 +937,8 @@ def phase_pair_domains(device, state):
         """One ``define`` under the profiler, the launch counts set to 0 just before."""
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(device)
-        start_profiler()
-        _build.reset_launches()
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with device_trace() as prof:
+            _build.reset_launches()
             t0 = time.perf_counter()
             out = domains.define(seqs, pairs, pack)
             torch.cuda.synchronize()

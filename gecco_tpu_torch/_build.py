@@ -55,8 +55,9 @@ _SIGNATURES = {
     "gecco_forward_pairs": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P,
                             _P],
     # xs, offsets, lens, loops, moves, n_seqs, e_odds, trans, prof_idx,
-    # n_prof, model_len, P, Mp, width, viterbi, out, stream
-    "gecco_dense_scores": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P, _P],
+    # n_prof, model_len, P, Mp, width, viterbi, tile, out, stream
+    "gecco_dense_scores": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P,
+                           _P],
 }
 # kernels D-G, J and K: xs, offsets, lens, loops, moves, seq, prof, n_rows,
 # e_odds, trans, model_len, P, Mp, width, stride, then their own arguments

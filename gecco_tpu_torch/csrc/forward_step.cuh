@@ -16,6 +16,13 @@
 // then a warp shuffle scan, then a pass over the warp totals); the E sum
 // rides in the same pass, because each thread's share of sum_k D_k is
 // itself affine in the value entering its warp.  Two barriers.
+//
+// warp_forward_step is the same step for one warp that holds a whole row
+// (lane l holding nodes [l*C, (l+1)*C)): one shuffle hands the stay
+// across lanes, the delete chain is the lane-local composition and a
+// five-step shuffle scan of its offsets alone (the maps' slopes are
+// products of tdd, fixed by the profile: ChainScan holds them), E one
+// warp sum; no barrier.  Kernel H uses it.
 #pragma once
 
 #include "common.cuh"
@@ -162,6 +169,125 @@ __device__ __forceinline__ float forward_step(float (&Mv)[CHUNK], float (&Iv)[CH
                                               ForwardScratch<THREADS>& sh) {
     float unused;
     return forward_step<THREADS, CHUNK>(Mv, Iv, Dv, N, B, J, C, e, tsm, M, loop, move, sh, unused);
+}
+
+// A lane's transitions of its C nodes, tr(slot, j): held in registers
+// (RegTrans) or read from a lane-interleaved [N_TRANS][32 * C] table in
+// shared memory, node l*C + j at j*32 + l (SmemTrans, `p` at lane l).
+template <int C>
+struct RegTrans {
+    float t[N_TRANS][C];
+    __device__ __forceinline__ explicit RegTrans(const float* p) {
+#pragma unroll
+        for (int slot = 0; slot < N_TRANS; ++slot)
+#pragma unroll
+            for (int j = 0; j < C; ++j) t[slot][j] = p[(slot * C + j) * 32];
+    }
+    __device__ __forceinline__ float operator()(int slot, int j) const { return t[slot][j]; }
+};
+
+template <int C>
+struct SmemTrans {
+    const float* p;
+    __device__ __forceinline__ explicit SmemTrans(const float* q) : p(q) {}
+    __device__ __forceinline__ float operator()(int slot, int j) const {
+        return p[(slot * C + j) * 32];
+    }
+};
+
+// The slopes of a warp's delete-chain scan.  The chain passes G through
+// each node's map G -> tdd_k G (+) tmd_k M_k, and the scan composes a
+// lane's maps with those of the lanes before it, five shuffle steps of
+// offset 2^k; a composite's slope is a product of tdd, the same at every
+// residue.  a[k] is this lane's slope before step k, or 0 where lane -
+// 2^k does not exist, so that the offset's update b = a[k] * b' (+) b
+// leaves it as it is (b >= 0).  chain_scan builds it once per profile,
+// every lane of the warp together.
+struct ChainScan {
+    float a[5];
+};
+
+template <int C, typename Trans>
+__device__ __forceinline__ ChainScan chain_scan(const Trans& tr) {
+    const int lane = threadIdx.x & 31;
+    float ca = 1.0f;
+#pragma unroll
+    for (int j = 0; j < C; ++j) ca = tr(T_DD, j) * ca;
+    ChainScan chain;
+#pragma unroll
+    for (int k = 0; k < 5; ++k) {
+        const int o = 1 << k;
+        const float ya = __shfl_up_sync(0xffffffffu, ca, o);
+        chain.a[k] = lane >= o ? ca : 0.0f;
+        if (lane >= o) ca = ya * ca;
+    }
+    return chain;
+}
+
+// One Forward step of a warp over a whole row.  Lane l holds nodes
+// [l*C, (l+1)*C) of M, I and D, `e` their emission odds of the residue and
+// `tr` their transitions; both are zero past the model length, so those
+// nodes stay zero (node M's delete state is the plain version's
+// tdd_{M-1} D_{M-1} + tmd_{M-1} M_{M-1}, zero in a Plan7 profile).  Every
+// lane updates N, B, J and C and rescales its nodes; returns the total.
+template <int C, typename Trans>
+__device__ __forceinline__ float warp_forward_step(float (&Mv)[C], float (&Iv)[C], float (&Dv)[C],
+                                                   float& N, float& B, float& J, float& Cs,
+                                                   const float (&e)[C], const Trans& tr,
+                                                   const ChainScan& chain, float loop,
+                                                   float move) {
+    constexpr unsigned FULL = 0xffffffffu;
+    const int lane = threadIdx.x & 31;
+    float prev = __shfl_up_sync(FULL,
+                                Mv[C - 1] * tr(T_MM, C - 1) + Iv[C - 1] * tr(T_IM, C - 1) +
+                                    Dv[C - 1] * tr(T_DM, C - 1),
+                                1);
+    if (lane == 0) prev = 0.0f;
+    // descending, so node j-1 still holds the previous row
+#pragma unroll
+    for (int j = C - 1; j >= 0; --j) {
+        const int q = j > 0 ? j - 1 : 0;
+        const float stay =
+            j > 0 ? Mv[q] * tr(T_MM, q) + Iv[q] * tr(T_IM, q) + Dv[q] * tr(T_DM, q) : prev;
+        const float mn = e[j] * (stay + B * tr(T_BM, j));
+        Iv[j] = Mv[j] * tr(T_MI, j) + Iv[j] * tr(T_II, j);
+        Mv[j] = mn;
+    }
+    // G_k = tdd_k * G_{k-1} + tmd_k * M_k is what node k sends on, and
+    // D_k = G_{k-1}; cb is the offset of this lane's composed maps, then
+    // of the lanes' up to this one
+    float cb = 0.0f;
+#pragma unroll
+    for (int j = 0; j < C; ++j) cb = tr(T_DD, j) * cb + tr(T_MD, j) * Mv[j];
+#pragma unroll
+    for (int k = 0; k < 5; ++k) cb = chain.a[k] * __shfl_up_sync(FULL, cb, 1 << k) + cb;
+    float g = __shfl_up_sync(FULL, cb, 1);
+    if (lane == 0) g = 0.0f;
+    float sum = 0.0f;
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+        Dv[j] = g;
+        sum += Mv[j] + g;
+        g = tr(T_DD, j) * g + tr(T_MD, j) * Mv[j];
+    }
+    const float E = warp_sum(sum);
+    const float Jn = J * loop + E * 0.5f;
+    const float Cn = Cs * loop + E * 0.5f;
+    const float Nn = N * loop;
+    const float Bn = (Nn + Jn) * move;
+    const float total = E + Bn + Nn + Cn + 1e-30f;
+    const float inv = 1.0f / total;
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+        Mv[j] *= inv;
+        Iv[j] *= inv;
+        Dv[j] *= inv;
+    }
+    N = Nn * inv;
+    B = Bn * inv;
+    J = Jn * inv;
+    Cs = Cn * inv;
+    return total;
 }
 
 }  // namespace gecco

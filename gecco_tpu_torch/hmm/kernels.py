@@ -60,6 +60,22 @@ _PLAIN_CELLS = 1 << 22
 #: most rows of one profile that a block of kernel B takes (its warps take
 #: them in turn); small, so that a class of few pairs still fills the card
 VITERBI_BLOCK_ROWS = 16
+#: sequences of one profile that a block of kernel H takes at widths 128
+#: to 1,024 (its warps take them in turn): the profile is staged once for
+#: them
+DENSE_TILE = 64
+#: widest class in which kernel H runs a warp per pair; wider classes run
+#: a block of the class's whole width per pair
+DENSE_WARP_WIDTH = 1024
+
+
+def dense_nodes(bank: "TorchBank") -> "numpy.ndarray":
+    """Nodes of a DP row that kernel H computes for each profile of
+    ``bank``: 32 ceil(M / 32) to ``DENSE_WARP_WIDTH`` (each of a warp's 32
+    lanes holds ceil(M / 32) nodes, ``dense.cu``'s ``dense_kernel``), the
+    class's width above it."""
+    lengths = bank.host.lengths.astype(numpy.int64)
+    return numpy.where(bank.class_of <= DENSE_WARP_WIDTH, 32 * -(-lengths // 32), bank.class_of)
 
 
 class SeqPack:
@@ -642,7 +658,7 @@ def dense_scores(pack: SeqPack, bank: TorchBank, *, viterbi: bool = False) -> to
                 pack.loops_exp.data_ptr(), pack.moves_exp.data_ptr(), pack.S,
                 bank.e_odds.data_ptr(), bank.trans.data_ptr(), idx.data_ptr(),
                 int(idx.numel()), bank.lengths.data_ptr(), bank.P, bank.Mp, width,
-                int(viterbi), out.data_ptr(), stream,
+                int(viterbi), DENSE_TILE, out.data_ptr(), stream,
             )
             _build.check(code, "gecco_dense_scores")
             _build.launches["dense_scores"] += 1

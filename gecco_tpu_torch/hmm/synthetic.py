@@ -31,7 +31,7 @@ from .io import AMINO_ALPHABET, BACKGROUND_F, ProfileHMM, encode_sequence
 from .profile import SearchProfile, configure_local
 
 __all__ = [
-    "bench_workload", "consensus_proteins", "pfam_shaped_lengths", "pfam_shaped_profiles", "plant_domain",
+    "bench_proteins", "bench_workload", "consensus_proteins", "pfam_shaped_lengths", "pfam_shaped_profiles", "plant_domain",
     "synthetic_genome", "synthetic_profiles", "synthetic_proteins", "write_library",
 ]
 
@@ -240,6 +240,20 @@ def bench_workload(
     protein ``i`` with ``i mod 4 != 3``; the returned genome carries the
     planted residues.  Profiles are uncalibrated.
     """
+    genome, genes, profiles, seqs = _bench(n_genes, n_profiles, seed)
+    return _plant_in_genome(genome, genes, seqs), profiles, seqs
+
+
+def bench_proteins(
+    n_genes: int = 3230, n_profiles: int = 2766, seed: int = 4,
+) -> Tuple[List[SearchProfile], List["numpy.ndarray"]]:
+    """``(profiles, proteins)`` of :func:`bench_workload`, without writing
+    the planted residues back into the genome."""
+    _genome, _genes, profiles, seqs = _bench(n_genes, n_profiles, seed)
+    return profiles, seqs
+
+
+def _bench(n_genes: int, n_profiles: int, seed: int):
     genome = synthetic_genome(n_genes, seed=seed)
     genes = list(ScanFinder().find_genes([SeqRecord(id="bench", seq=Seq(genome))]))
     profiles = pfam_shaped_profiles(n_profiles, seed=0)
@@ -249,7 +263,7 @@ def bench_workload(
         if i % 4 != 3:
             gm = profiles[(i * 13) % n_profiles]
             seqs[i] = plant_domain(seqs[i], gm, rng, max_len=min(150, gm.M))
-    return _plant_in_genome(genome, genes, seqs), profiles, seqs
+    return genome, genes, profiles, seqs
 
 
 def _plant_in_genome(genome: str, genes: Sequence[Gene], seqs) -> str:

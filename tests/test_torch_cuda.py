@@ -19,7 +19,7 @@ from gecco_tpu_torch.hmm.bank import NEG, TorchBank
 from gecco_tpu_torch.hmm.domains import (
     PairDomains, pair_align, pair_align_plain, pair_posterior, pair_posterior_plain)
 from gecco_tpu_torch.hmm.kernels import (
-    VITERBI_BLOCK_ROWS, SeqPack, dense_scores, dense_scores_plain, msv_filter, msv_filter_plain,
+    DENSE_TILE, VITERBI_BLOCK_ROWS, SeqPack, dense_scores, dense_scores_plain, msv_filter, msv_filter_plain,
     ssv_filter, ssv_filter_plain, viterbi_pairs, viterbi_pairs_plain)
 from gecco_tpu_torch.hmm.pipeline import SearchPipeline
 from gecco_tpu_torch.hmm.synthetic import (
@@ -102,7 +102,7 @@ EDGE_SEQS = (0, 1, 31, 32, 33, 2000)
 
 @pytest.fixture(scope="module")
 def edge_workload(device):
-    """Kernels A and B at their edges: every width class 128 to 4,096 with
+    """Kernels A, B and H at their edges: every width class 128 to 4,096 with
     the models of ``EDGE_MODELS``, the sequences of ``EDGE_SEQS`` (each
     but the first two a consensus run ending on a profile's last node: of
     33, 128, 129 and 4,096 nodes) and 40 proteins with planted domains,
@@ -221,6 +221,36 @@ def test_dense_kernel_matches_plain(workload, viterbi, tol):
     want = dense_scores_plain(pack, bank, viterbi=viterbi)
     assert torch.isneginf(want[-1]).all()       # the empty sequence
     torch.testing.assert_close(got, want, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("viterbi, tol", [(False, 1e-3), (True, 1e-4)],
+                         ids=["forward", "viterbi"])
+@pytest.mark.parametrize("pack_of", ["one", "ragged"])
+def test_dense_kernel_edges(edge_workload, device, viterbi, tol, pack_of):
+    """Kernel H against its plain version on the edge bank, every class
+    128 to 4,096 in one launch each: a pack of one sequence (the 2,000
+    residues), and a pack of ``DENSE_TILE + 1`` sequences (the edge
+    sequences of 0 to 2,000 residues and proteins, repeated), whose last
+    tile holds one sequence, so that the block's shared counter runs dry
+    in its first warp.  The largest difference is printed."""
+    _profiles, seqs, _pack, bank = edge_workload
+    if pack_of == "one":
+        chosen = [seqs[EDGE_SEQS.index(2000)]]
+    else:
+        chosen = [seqs[i % len(seqs)] for i in range(DENSE_TILE + 1)]
+    pack = SeqPack(chosen, device)
+    before = _build.launches["dense_scores"]
+    got = dense_scores(pack, bank, viterbi=viterbi)
+    torch.cuda.synchronize()
+    assert _build.launches["dense_scores"] == before + len(bank.classes)
+    want = dense_scores_plain(pack, bank, viterbi=viterbi)
+    finite = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), finite)
+    assert int(finite.sum()) == (pack.lens_host > 0).sum() * bank.P
+    err = float((got[finite] - want[finite]).abs().max())
+    print(f"kernel H ({'Viterbi' if viterbi else 'Forward'}) on the edge bank, "
+          f"{pack.S} sequences: largest difference {err!r} nats")
+    assert err <= tol
 
 
 @pytest.mark.parametrize("max_filter", [False, True])

@@ -17,18 +17,22 @@ import numpy
 import pytest
 import torch
 
+from gecco_tpu.hmm import engine as jax_engine
 from gecco_tpu.hmm.batch import ProfileBank
 from gecco_tpu.hmm.calibrate import calibrate as jax_calibrate
 from gecco_tpu.hmm.kernels import Bucketed, ForwardKernel, ViterbiKernel
 from gecco_tpu.hmm.pipeline import SearchPipeline as JaxSearchPipeline
-from gecco_tpu.hmm.synthetic import plant_domain, synthetic_profiles, synthetic_proteins
+from gecco_tpu.hmm.synthetic import (
+    pfam_shaped_profiles, plant_domain, synthetic_profiles, synthetic_proteins)
 
 from gecco_tpu_torch.hmm.bank import TorchBank
+from gecco_tpu_torch.hmm.calibrate import calibrate
 from gecco_tpu_torch.hmm.kernels import (
-    SeqPack, dense_scores, dense_scores_plain, viterbi_pairs)
+    DENSE_WARP_WIDTH, SeqPack, dense_nodes, dense_scores, dense_scores_plain, viterbi_pairs)
 from gecco_tpu_torch.hmm.pipeline import SearchPipeline
 from gecco_tpu_torch.hmm.profile import profiles_from_arrays
 from gecco_tpu_torch.hmm.stream import forward_pairs
+from gecco_tpu_torch.hmm.synthetic import bench_proteins
 
 torch.set_num_threads(1)
 
@@ -58,6 +62,23 @@ def workload():
     return profiles, seqs, SeqPack(seqs, "cpu"), bank
 
 
+def test_dense_nodes_per_class():
+    """The DP row kernel H computes for a profile: whole 32-node lane
+    groups to ``DENSE_WARP_WIDTH``, never past the class, the class's
+    width above it."""
+    lengths = [1, 31, 32, 33, 95, 128, 129, 256, 300, 512, 513, 1000, 1024, 1025, 2100]
+    profiles = [gm for seed, m in enumerate(lengths)
+                for gm in synthetic_profiles(1, min_length=m, max_length=m, seed=seed)]
+    bank = TorchBank.build(_port(profiles), "cpu")
+    nodes = dense_nodes(bank)
+    assert [w for w, _ in bank.classes] == [128, 256, 512, 1024, 2048, 4096]
+    for m, n, width in zip(lengths, nodes.tolist(), bank.class_of.tolist()):
+        if width <= DENSE_WARP_WIDTH:
+            assert n % 32 == 0 and m <= n < m + 32 and n <= width
+        else:
+            assert n == width
+
+
 @pytest.mark.parametrize("semiring", ["forward", "viterbi"])
 def test_dense_plain_matches_jax_bucketed(workload, semiring):
     profiles, seqs, pack, bank = workload
@@ -69,6 +90,19 @@ def test_dense_plain_matches_jax_bucketed(workload, semiring):
     # the empty sequence: log(C move + 1e-38) with C = 0 and the float32
     # subnormal flushed, as the JAX kernel computes it here
     assert numpy.isneginf(theirs[-1]).all() and numpy.isneginf(mine[-1]).all()
+
+
+@pytest.mark.parametrize("semiring", ["forward", "viterbi"])
+def test_dense_rows_do_not_depend_on_the_pack(workload, semiring):
+    """A sequence scores the same in any pack: rows of a whole pack equal
+    the scores of a pack of those sequences alone, in another order (how
+    ``chip_smoke.py`` holds a sample of the bench pack's rows)."""
+    _profiles, seqs, pack, bank = workload
+    rows = [len(seqs) - 1, 3, 0]    # the empty sequence first
+    viterbi = semiring == "viterbi"
+    whole = dense_scores(pack, bank, viterbi=viterbi).numpy()[rows]
+    alone = dense_scores(SeqPack([seqs[r] for r in rows], "cpu"), bank, viterbi=viterbi).numpy()
+    numpy.testing.assert_array_equal(whole, alone)
 
 
 @pytest.mark.parametrize("semiring", ["forward", "viterbi"])
@@ -186,3 +220,64 @@ def test_max_filter_bit_cutoffs(multidomain):
             gm.hmm.cutoffs = {}
     assert hits and all(h.score >= 20.0 for h in hits)
     assert len(hits) <= pipeline.stage_counts["F3"] < 3 * len(profiles)
+
+
+#: the cut of the bench workload (``bench_proteins()``: 3,015 proteins,
+#: 2,766 profiles, ``Z = 2,766`` as ``chip_smoke.py`` searches it) on
+#: which both packages' ``max_filter`` searches must pick the same
+#: candidates: its first proteins against the profiles planted in its
+#: first eight and the bank's first few
+BENCH_CUT_PROTEINS = 48
+BENCH_CUT_PROFILES = 3
+BENCH_Z = 2766
+
+
+def test_max_filter_candidates_match_jax_on_bench_cut(monkeypatch):
+    """Each package calibrates its own copy of the cut's profiles (the
+    defaults: 256 sequences of 256 residues, seed 0) and runs its
+    ``max_filter`` search, the port on plain PyTorch and the JAX package
+    on its XLA engines: the same ``stage_counts`` and the same pairs
+    reach domain definition (JAX's are the pairs its host engine is
+    asked to define)."""
+    profiles, seqs = bench_proteins()
+    head = seqs[:BENCH_CUT_PROTEINS]
+    pick = sorted({(13 * i) % len(profiles) for i in range(8) if i % 4 != 3}
+                  | set(range(BENCH_CUT_PROFILES)))
+    mine = [profiles[p] for p in pick]
+    theirs = [gm for p, gm in enumerate(pfam_shaped_profiles(len(profiles), seed=0))
+              if p in pick]
+    for a, b in zip(mine, theirs):
+        assert a.name == b.name
+        numpy.testing.assert_array_equal(a.hmm.match, b.hmm.match)
+    calibrate(mine, device="cpu")
+    jax_calibrate(theirs, backend="xla")
+
+    port = SearchPipeline(mine, device="cpu", Z=BENCH_Z, domZ=BENCH_Z, max_filter=True,
+                          backend="torch")
+    port.search(head)
+    defined = set()
+    forward = jax_engine.forward
+    whole = {x.tobytes() for x in head}
+
+    def recording_forward(gm, x):
+        # the candidate loop scores whole sequences; domain definition
+        # rescores envelopes, which are not recorded
+        key = numpy.asarray(x).tobytes()
+        if key in whole:
+            defined.add((gm.name, key))
+        return forward(gm, x)
+
+    monkeypatch.setattr(jax_engine, "forward", recording_forward)
+    reference = JaxSearchPipeline(theirs, Z=BENCH_Z, domZ=BENCH_Z, max_filter=True,
+                                  backend="xla")
+    reference.search(head)
+    assert port.stage_counts == reference.stage_counts
+    assert {(mine[p].name, head[i].tobytes()) for i, p in port.candidate_pairs} == defined
+    pairs = port.stage_counts["pairs"]
+    planted = {(i, pick.index((13 * i) % len(profiles))) for i in range(len(head))
+               if i % 4 != 3 and (13 * i) % len(profiles) in pick}
+    found = len(planted & set(port.candidate_pairs))
+    print(f"max_filter on {len(head)} bench proteins x {len(pick)} profiles: "
+          f"{port.stage_counts['F3']} of {pairs} pairs ({port.stage_counts['F3'] / pairs:.2%}) "
+          f"pass E <= 10, {found} of the {len(planted)} with a planted domain among them; "
+          f"stage_counts {port.stage_counts}")

@@ -6,7 +6,7 @@ from gecco_tpu.hmm.h3m import read_h3m as jax_read_h3m
 
 from gecco_tpu_torch.hmm.h3m import read_h3m
 from gecco_tpu_torch.hmm.io import encode_sequence
-from gecco_tpu_torch.hmm.synthetic import bench_workload, write_library
+from gecco_tpu_torch.hmm.synthetic import bench_proteins, bench_workload, write_library
 from gecco_tpu_torch.orf.scan import ScanFinder
 from gecco_tpu_torch.seq import Seq, SeqRecord
 
@@ -21,6 +21,14 @@ def test_bench_workload_plants_domains_in_the_genome():
     called = {encode_sequence(str(g.protein.seq))[:512].tobytes() for g in genes}
     planted = [x.tobytes() for i, x in enumerate(seqs) if i % 4 != 3]
     assert sum(x in called for x in planted) >= len(planted) // 2
+
+
+def test_bench_proteins_are_the_workloads():
+    _, profiles, seqs = bench_workload(n_genes=40, n_profiles=30)
+    again, proteins = bench_proteins(n_genes=40, n_profiles=30)
+    assert [gm.name for gm in again] == [gm.name for gm in profiles]
+    assert len(proteins) == len(seqs)
+    assert all(numpy.array_equal(a, b) for a, b in zip(proteins, seqs))
 
 
 def test_write_library_uses_whitelisted_accessions(tmp_path):
