@@ -8,15 +8,15 @@ Run from the root of a checkout, with no arguments::
 Phases (each prints its wall seconds, each ends in a device sync):
 
 1. device: require CUDA, print the card's name and power limit, build
-   the kernels from ``gecco_tpu_torch/csrc``, print the registers and
-   spills (``nvcc -Xptxas -v``) of every instantiation of kernels A, B,
-   H (both semirings) and K;
+   the kernels from ``gecco_tpu_torch/csrc`` (printing the build's
+   seconds), print the registers and spills (``nvcc -Xptxas -v``) of
+   every instantiation of kernels A, B, C, H (both semirings), I and K;
 2. kernels: each CUDA kernel against its plain PyTorch version on the
    card, at the main path's shapes (2,766 Pfam-shaped profiles plus one
-   of 2,100 nodes), with a stated tolerance, timed beside it (A, H and
-   I also per width class, each class launched alone between CUDA
-   events, H with each class's cells and rates; B per width class from
-   the profiler); the
+   of 2,100 nodes), with a stated tolerance, timed beside it (A, C, H
+   and I also per width class, each class launched alone between CUDA
+   events, C, H and I with each class's cells and rates; B per width
+   class from the profiler); the
    domain kernels D-G over 256 proteins with planted domains against
    their planted profiles (the bank's width classes in turn) and against
    the wide profile, one launch per width class as the search makes
@@ -37,9 +37,11 @@ Phases (each prints its wall seconds, each ends in a device sync):
    512 residues with planted domains, 2,766 profiles calibrated by the
    port's own ``calibrate``), launch counts of every kernel, the
    survivor funnel, the pairs whose domains the host engine defined,
-   peak device memory, the device ms of kernels A and B per width class
-   (each launched once a class), and the same search on plain PyTorch
-   for the first proteins as a reference;
+   peak device memory, the device ms of kernels A, B and C per width
+   class (each launched once a class), kernel C alone on the search's F3
+   pairs and on ``calibrate``'s 708,096 pairs, per width class between
+   CUDA events (beside calibrate's wall), and the same search on plain
+   PyTorch for the first proteins as a reference;
 4. max-filter search: ``SearchPipeline(max_filter=True,
    backend="cuda").search`` (hmmsearch ``--max``) over the same
    workload, every pair Forward-scored by kernel H (one launch a width
@@ -57,14 +59,18 @@ Phases (each prints its wall seconds, each ends in a device sync):
    no MSV score is below its SSV score), launch counts, peak device
    memory, the same search on plain PyTorch for the first proteins, and
    that comparison again with ``bias_filter=False`` (hmmsearch
-   ``--nobias``);
+   ``--nobias``); then I alone over the whole pack, per width class
+   between CUDA events, with rows of its first, middle and last tiles
+   (the ragged last tile whole) held against the plain version bit for
+   bit;
 6. pair domains: ``PairDomains(backend="cuda").define`` (kernels J and
    K) over the F3 candidates of phase 3, the same domains as
    ``StreamDomains.define`` gives on them, its launch counts, device
    milliseconds, peak device memory and host pairs; the same against
-   plain PyTorch on the first proteins' candidates; and every envelope
-   found rescored as a residue window by kernels C and B against their
-   plain versions;
+   plain PyTorch on the first proteins' candidates; the bounds of
+   kernels D-G, J and K on that work; and every envelope found rescored
+   as a residue window by kernels C and B against their plain versions,
+   timed per width class between CUDA events;
 7. CLI: ``gecco-tpu-torch run`` on the genome with the calibrated bank
    written as ``.h3m`` (accessions renamed to the embedded model's
    Pfam whitelist).
@@ -293,18 +299,23 @@ def timed_ms(fn, repeats):
 WIDTH_OF = {"ssv_kernel": lambda c: 32 * c, "ssv_kernel_wide": lambda c: 32 * c,
             "viterbi_kernel": lambda c: 32 * c,
             "viterbi_kernel_wide": lambda t, c: t * c, "msv_kernel": lambda c: 32 * c,
+            "msv_kernel_wide": lambda c: 32 * c, "forward_kernel": lambda c: 32 * c,
+            "forward_kernel_wide": lambda t, c: t * c,
             "pair_align_kernel": lambda t, c: t * c,
             "dense_kernel": lambda c, v: 32 * c, "dense_kernel_wide": lambda t, c, v: t * c}
 #: phase 1's ``-Xptxas -v`` reports: source, ``__global__`` name, instantiations
 REGISTER_REPORTS = (("ssv.cu", "ssv_kernel", 5), ("ssv.cu", "ssv_kernel_wide", 1),
                     ("viterbi.cu", "viterbi_kernel", 4),
                     ("viterbi.cu", "viterbi_kernel_wide", 2),
+                    ("msv.cu", "msv_kernel", 5), ("msv.cu", "msv_kernel_wide", 1),
+                    ("forward.cu", "forward_kernel", 4), ("forward.cu", "forward_kernel_wide", 2),
                     ("pair_align.cu", "pair_align_kernel", 6),
                     ("dense.cu", "dense_kernel", 8), ("dense.cu", "dense_kernel_wide", 4))
 #: the ``__global__`` functions of each kernel timed by width class
 CLASS_KERNELS = {"ssv_filter": ("ssv_kernel", "ssv_kernel_wide"),
                  "viterbi_pairs": ("viterbi_kernel", "viterbi_kernel_wide"),
-                 "msv_filter": ("msv_kernel",),
+                 "msv_filter": ("msv_kernel", "msv_kernel_wide"),
+                 "forward_pairs": ("forward_kernel", "forward_kernel_wide"),
                  "dense_scores": ("dense_kernel", "dense_kernel_wide")}
 
 
@@ -375,24 +386,56 @@ def class_events_ms(fn, bank, repeats):
             for width, idx in bank.classes}
 
 
-def print_class_rates(label, per_class, pack, bank):
-    """Kernel H's device ms per width class of an all-pairs launch beside
-    the class's DP cells: real (model lengths) and computed
-    (``hmm.kernels.dense_nodes``), and the rates they give."""
-    from gecco_tpu_torch.hmm.kernels import dense_nodes
-
-    residues = float(pack.lens_host.sum())
-    lengths, nodes = bank.host.lengths.astype(numpy.float64), dense_nodes(bank)
+def print_rates(label, per_class, cells, computed):
+    """A kernel's device ms per width class beside the class's DP cells:
+    real (model lengths) and computed (the nodes a row the kernel runs),
+    and the rates they give."""
     rates = {}
-    for width, idx in bank.classes:
+    for width in cells:
         ms = per_class.get(width)
-        idx = idx.cpu().numpy()
-        cells = residues * float(lengths[idx].sum())
-        computed = residues * float(nodes[idx].sum())
-        rates[width] = {"ms": ms, "cells": cells, "computed_cells": computed,
-                        "Gcells_per_s": cells / ms / 1e6 if ms else None,
-                        "computed_Gcells_per_s": computed / ms / 1e6 if ms else None}
+        rates[width] = {"ms": ms, "cells": cells[width], "computed_cells": computed[width],
+                        "Gcells_per_s": cells[width] / ms / 1e6 if ms else None,
+                        "computed_Gcells_per_s": computed[width] / ms / 1e6 if ms else None}
     print(f"# kernel {label} rates per width class: {json.dumps(rates)}", flush=True)
+
+
+def print_class_rates(label, per_class, pack, bank, nodes):
+    """:func:`print_rates` of an all-pairs launch (kernels H and I), a row
+    of profile ``p`` computing ``nodes[p]`` nodes."""
+    residues = float(pack.lens_host.sum())
+    lengths = bank.host.lengths.astype(numpy.float64)
+    cells, computed = {}, {}
+    for width, idx in bank.classes:
+        idx = idx.cpu().numpy()
+        cells[width] = residues * float(lengths[idx].sum())
+        computed[width] = residues * float(numpy.asarray(nodes, numpy.float64)[idx].sum())
+    print_rates(label, per_class, cells, computed)
+
+
+def pair_class_rates(label, launches_of, pack, bank, s_idx, p_idx, nodes, repeats,
+                     ranges=None):
+    """Device ms of a pair kernel per width class over pairs ``(s_idx[r],
+    p_idx[r])`` (over residue windows ``ranges`` where given): each class's
+    launch, prepared beforehand (``launches_of``, e.g.
+    ``hmm.stream.forward_launches``), timed alone between CUDA events (mean
+    of ``repeats`` after a warm-up), printed with :func:`print_rates`.
+    Returns the per-class ms."""
+    s_idx, p_idx = numpy.asarray(s_idx), numpy.asarray(p_idx)
+    launches, finish = launches_of(pack, bank, s_idx, p_idx, ranges=ranges)
+    width = bank.class_of[p_idx]
+    residues = (pack.lens_host[s_idx] if ranges is None
+                else numpy.diff(numpy.asarray(ranges), axis=1)[:, 0]).astype(numpy.float64)
+    lengths = bank.host.lengths.astype(numpy.float64)
+    nodes = numpy.asarray(nodes, numpy.float64)
+    per_class, cells, computed = {}, {}, {}
+    for w, launch in sorted(launches.items()):
+        sel = width == w
+        per_class[w] = timed_ms(launch, repeats)[1]
+        cells[w] = float((residues[sel] * lengths[p_idx[sel]]).sum())
+        computed[w] = float((residues[sel] * nodes[p_idx[sel]]).sum())
+    finish()
+    print_rates(label, per_class, cells, computed)
+    return per_class
 
 
 def phase_kernels(device, report, kernels):
@@ -400,9 +443,9 @@ def phase_kernels(device, report, kernels):
 
     from gecco_tpu_torch.hmm.bank import TorchBank
     from gecco_tpu_torch.hmm.kernels import (
-        SeqPack, msv_filter, msv_filter_plain, ssv_filter, ssv_filter_plain, viterbi_pairs,
-        viterbi_pairs_plain)
-    from gecco_tpu_torch.hmm.stream import forward_pairs, forward_pairs_plain
+        SeqPack, dense_nodes, msv_filter, msv_filter_plain, msv_nodes, ssv_filter,
+        ssv_filter_plain, viterbi_pairs, viterbi_pairs_plain)
+    from gecco_tpu_torch.hmm.stream import forward_launches, forward_pairs, forward_pairs_plain
     from gecco_tpu_torch.hmm.synthetic import (
         pfam_shaped_profiles, synthetic_profiles, synthetic_proteins)
 
@@ -432,10 +475,11 @@ def phase_kernels(device, report, kernels):
     print(f"# kernel msv_filter: largest SSV score above its MSV score {below!r} nats "
           f"(tol {MSV_SSV_TOL})", flush=True)
     require(below <= MSV_SSV_TOL, f"an MSV score is below its SSV score by {below}")
-    for name, kernel in (("ssv_filter", ssv_filter), ("msv_filter", msv_filter)):
-        per_class = class_events_ms(lambda b: kernel(pack, b), bank, 3)
-        print(f"# kernel {name} per width class (CUDA events, ms): {json.dumps(per_class)}",
-              flush=True)
+    per_class = class_events_ms(lambda b: ssv_filter(pack, b), bank, 3)
+    print(f"# kernel ssv_filter per width class (CUDA events, ms): {json.dumps(per_class)}",
+          flush=True)
+    per_class = class_events_ms(lambda b: msv_filter(pack, b), bank, 3)
+    print_class_rates("msv_filter (CUDA events)", per_class, pack, bank, msv_nodes(bank))
 
     # survivor-like pairs: every protein against random profiles, plus
     # every protein against the wide profile
@@ -453,6 +497,8 @@ def phase_kernels(device, report, kernels):
         report(name, [(name, got, want)], ms, plain_ms,
                pair_work(pack, lengths, s_idx, p_idx, FLOPS_PER_CELL[name], 4.0 * len(s_idx)))
     print_class_ms("viterbi_pairs", lambda: viterbi_pairs(pack, bank, s_idx, p_idx))
+    pair_class_rates("forward_pairs (CUDA events)", forward_launches, pack, bank, s_idx, p_idx,
+                     dense_nodes(bank), 3)
     phase_dense_kernel(device, bank, seqs[:DENSE_PROTEINS], report)
     phase_domain_kernels(device, profiles, bank, report, kernels)
 
@@ -483,7 +529,7 @@ def phase_dense_kernel(device, bank, seqs, report):
     """Kernel H in both semirings against its plain version, every width
     class of the bank, and against kernels C and B on the same pairs."""
     from gecco_tpu_torch.hmm.kernels import (
-        SeqPack, dense_scores, dense_scores_plain, viterbi_pairs)
+        SeqPack, dense_nodes, dense_scores, dense_scores_plain, viterbi_pairs)
     from gecco_tpu_torch.hmm.stream import forward_pairs
 
     pack = SeqPack(seqs, device)
@@ -497,7 +543,8 @@ def phase_dense_kernel(device, bank, seqs, report):
         viterbi = semiring == "viterbi"
         got, ms = timed_ms(lambda: dense_scores(pack, bank, viterbi=viterbi), 3)
         per_class = class_events_ms(lambda b: dense_scores(pack, b, viterbi=viterbi), bank, 3)
-        print_class_rates(f"dense_scores ({semiring}, CUDA events)", per_class, pack, bank)
+        print_class_rates(f"dense_scores ({semiring}, CUDA events)", per_class, pack, bank,
+                          dense_nodes(bank))
         want, plain_ms = timed_ms(lambda: dense_scores_plain(pack, bank, viterbi=viterbi), 1)
         checks.append((f"dense_{semiring}", got, want))
         timings[semiring] = (ms, plain_ms, all_pairs_work(
@@ -780,7 +827,8 @@ def phase_search(device, state):
     t0 = time.perf_counter()
     calibrate(profiles, device=device)
     torch.cuda.synchronize()
-    print(f"# calibrate (port, kernels): {time.perf_counter() - t0:.3f} s", flush=True)
+    calibrate_s = time.perf_counter() - t0
+    print(f"# calibrate (port, kernels): {calibrate_s:.3f} s", flush=True)
 
     pipeline = SearchPipeline(profiles, device=device, Z=N_PROFILES, domZ=N_PROFILES,
                               backend="cuda")
@@ -792,15 +840,50 @@ def phase_search(device, state):
     for stage, count in FUNNEL.items():
         require(pipeline.stage_counts.get(stage) == count,
                 f"funnel at {stage}: {pipeline.stage_counts.get(stage)} != {count}")
+    forward_on_search(pipeline, seqs, device, calibrate_s)
     compare_with_plain(pipeline, profiles, seqs[:HEAD], device)
     state.update(genome=genome, profiles=profiles, seqs=seqs, launches=launches,
                  hits={(h.sequence_index, h.profile.name) for h in hits},
                  bank=pipeline.bank, candidates=candidates)
 
 
+def forward_on_search(pipeline, seqs, device, calibrate_s):
+    """Kernel C per width class between CUDA events: on the pairs the
+    search's F3 rescored, and on the all-pairs launch of ``calibrate`` (256
+    background sequences of 256 residues against every profile), printed
+    beside calibrate's wall."""
+    from gecco_tpu_torch.hmm.calibrate import background_sequences
+    from gecco_tpu_torch.hmm.kernels import SeqPack, dense_nodes
+    from gecco_tpu_torch.hmm.stream import forward_launches
+
+    bank = pipeline.bank
+    lengths = bank.lengths.cpu().numpy()
+    nodes = dense_nodes(bank)  # kernel C's rows are kernel H's
+    pack = SeqPack(seqs, device)
+    s_idx, p_idx = pipeline.rescored_pairs
+    require(len(s_idx) == FUNNEL["F2"], f"{len(s_idx)} pairs rescored, not {FUNNEL['F2']}")
+    per_class = pair_class_rates("forward_pairs on the F3 pairs of the search (CUDA events)",
+                                 forward_launches, pack, bank, s_idx, p_idx, nodes, 3)
+    work = pair_work(pack, lengths, s_idx, p_idx, FLOPS_PER_CELL["forward_pairs"],
+                     4.0 * len(s_idx))
+    print(f"# kernel forward_pairs on the F3 pairs: {sum(per_class.values())!r} ms (CUDA "
+          f"events, summed over classes), {json.dumps(bound(*work))} ({work[0]!r} flops, "
+          f"{work[1]!r} bytes)", flush=True)
+    cal = SeqPack(background_sequences(), device)
+    s_cal = numpy.repeat(numpy.arange(cal.S), bank.P)
+    p_cal = numpy.tile(numpy.arange(bank.P), cal.S)
+    per_class = pair_class_rates("forward_pairs in calibrate (CUDA events)", forward_launches,
+                                 cal, bank, s_cal, p_cal, nodes, 1)
+    work = pair_work(cal, lengths, s_cal, p_cal, FLOPS_PER_CELL["forward_pairs"],
+                     4.0 * len(s_cal))
+    print(f"# calibrate: {calibrate_s:.3f} s wall; its kernel C launches alone "
+          f"{sum(per_class.values())!r} ms (CUDA events, {len(s_cal)} pairs), "
+          f"{json.dumps(bound(*work))}", flush=True)
+
+
 def phase_max_filter(device, state):
     """hmmsearch ``--max``: every pair Forward-scored by kernel H."""
-    from gecco_tpu_torch.hmm.kernels import SeqPack
+    from gecco_tpu_torch.hmm.kernels import SeqPack, dense_nodes
     from gecco_tpu_torch.hmm.pipeline import SearchPipeline
 
     profiles, seqs = state["profiles"], state["seqs"]
@@ -828,7 +911,7 @@ def phase_max_filter(device, state):
     require(not any(moved.values()), f"max_filter funnel moved from the record: {moved}")
     pack = SeqPack(seqs, device)
     print_class_rates("dense_scores on the search (profiler)",
-                      classes.get("dense_scores", {}), pack, pipeline.bank)
+                      classes.get("dense_scores", {}), pack, pipeline.bank, dense_nodes(pipeline.bank))
     work = all_pairs_work(pack, pipeline.bank.lengths.cpu().numpy(),
                           FLOPS_PER_CELL["dense_forward"])
     print(f"# kernel dense_scores on the search: {json.dumps(bound(*work))} "
@@ -858,7 +941,7 @@ def check_dense_whole_pack(pack, bank):
     :func:`tile_rows` (full tiles, their block offsets and the ragged last
     tile) held against the plain version on those sequences."""
     from gecco_tpu_torch.hmm.kernels import (
-        DENSE_TILE, SeqPack, dense_scores, dense_scores_plain)
+        DENSE_TILE, SeqPack, dense_nodes, dense_scores, dense_scores_plain)
 
     rows = tile_rows(pack.S, DENSE_TILE)
     xs, lens = pack.xs.cpu().numpy(), pack.lens_host
@@ -869,7 +952,7 @@ def check_dense_whole_pack(pack, bank):
         viterbi = semiring == "viterbi"
         per_class = class_events_ms(lambda b: dense_scores(pack, b, viterbi=viterbi), bank, 1)
         print_class_rates(f"dense_scores ({semiring}) on the whole pack (CUDA events)",
-                          per_class, pack, bank)
+                          per_class, pack, bank, dense_nodes(bank))
         got = dense_scores(pack, bank, viterbi=viterbi)[torch.as_tensor(rows, device=pack.device)]
         want = dense_scores_plain(sample, bank, viterbi=viterbi)
         finite = torch.isfinite(want)
@@ -910,6 +993,7 @@ def phase_msv_search(device, state):
                           FLOPS_PER_CELL["msv_filter"], planes=21)
     print(f"# kernel msv_filter on the search: {json.dumps(bound(*work))} "
           f"({work[0]!r} flops, {work[1]!r} bytes)", flush=True)
+    check_msv_whole_pack(SeqPack(seqs, device), pipeline.bank)
     compare_with_plain(pipeline, profiles, seqs[:HEAD], device, filter_stage="msv")
     nobias = SearchPipeline(profiles, device=device, Z=N_PROFILES, domZ=N_PROFILES,
                             filter_stage="msv", bias_filter=False, backend="cuda")
@@ -920,14 +1004,45 @@ def phase_msv_search(device, state):
     state.update(msv_launches=launches)
 
 
+def check_msv_whole_pack(pack, bank):
+    """Kernel I over the search's whole pack: its device ms per width class
+    (CUDA events) with rates, and the rows of :func:`tile_rows` (full
+    tiles of the largest class tile, which the smaller tiles divide, their
+    block offsets and the ragged last tile, in the kernel's order of
+    sequences) held against the plain version bit for bit."""
+    from gecco_tpu_torch.hmm.kernels import (
+        SeqPack, msv_filter, msv_filter_plain, msv_nodes, msv_tile)
+
+    per_class = class_events_ms(lambda b: msv_filter(pack, b), bank, 1)
+    print_class_rates("msv_filter on the whole pack (CUDA events)", per_class, pack, bank,
+                      msv_nodes(bank))
+    order = pack.by_length().cpu().numpy()
+    tile = max(msv_tile(width) for width, _idx in bank.classes if width < 4096)
+    slots = tile_rows(pack.S, tile)
+    rows = [int(order[k]) for k in slots]
+    xs, lens = pack.xs.cpu().numpy(), pack.lens_host
+    offsets = pack.offsets.cpu().numpy()
+    sample = SeqPack([xs[offsets[r]:offsets[r] + lens[r]] for r in rows], pack.device)
+    got = msv_filter(pack, bank)[torch.as_tensor(rows, device=pack.device)]
+    want = msv_filter_plain(sample, bank)
+    differ = int((got != want).sum())
+    print(f"# kernel msv_filter on the whole pack ({pack.S} proteins, tiles of {tile}): "
+          f"{len(rows)} rows of tiles {sorted({k // tile for k in slots})} against the "
+          f"plain version: {differ} scores differ (bit for bit), max abs "
+          f"{float((got - want).abs().max())!r}", flush=True)
+    require(differ == 0, f"msv_filter on the whole pack differs from plain in {differ} scores")
+
+
 def phase_pair_domains(device, state):
     """``PairDomains`` (kernels J and K) over the default search's F3
     candidates against ``StreamDomains`` (kernels D-G) and plain PyTorch;
     kernels C and B over every envelope found as a residue window."""
     from gecco_tpu_torch import _build
     from gecco_tpu_torch.hmm.domains import PairDomains
-    from gecco_tpu_torch.hmm.kernels import SeqPack, viterbi_pairs, viterbi_pairs_plain
-    from gecco_tpu_torch.hmm.stream import StreamDomains, forward_pairs, forward_pairs_plain
+    from gecco_tpu_torch.hmm.kernels import (
+        SeqPack, dense_nodes, viterbi_launches, viterbi_pairs, viterbi_pairs_plain)
+    from gecco_tpu_torch.hmm.stream import (
+        StreamDomains, forward_launches, forward_pairs, forward_pairs_plain)
 
     profiles, seqs, bank, pairs = (state[k] for k in ("profiles", "seqs", "bank", "candidates"))
     require(len(pairs) == FUNNEL["F3"], f"{len(pairs)} candidates, not {FUNNEL['F3']}")
@@ -991,22 +1106,73 @@ def phase_pair_domains(device, state):
     print(f"# reference (PairDomains on plain torch, {len(head)} candidates of the first "
           f"{HEAD} proteins): {count} domains agree", flush=True)
 
+    domain_bounds(pack, bank, pairs, want)
+
     # every envelope found, rescored as a residue window
     rows = [(s, p, d.ienv - 1, d.jenv) for (s, p), doms in got.items() for d in doms]
     s_idx, p_idx = (numpy.array([row[k] for row in rows]) for k in (0, 1))
     ranges = numpy.array([row[2:] for row in rows])
-    for name, kernel, plain_fn, key in (
-            ("forward_pairs", forward_pairs, forward_pairs_plain, "forward_window"),
-            ("viterbi_pairs", viterbi_pairs, viterbi_pairs_plain, "viterbi_window")):
+    lengths = bank.lengths.cpu().numpy()
+    cells = float(((ranges[:, 1] - ranges[:, 0]) * lengths[p_idx]).sum())
+    for name, kernel, plain_fn, launches_of, nodes, key in (
+            ("forward_pairs", forward_pairs, forward_pairs_plain, forward_launches,
+             dense_nodes(bank), "forward_window"),
+            ("viterbi_pairs", viterbi_pairs, viterbi_pairs_plain, viterbi_launches,
+             bank.class_of, "viterbi_window")):
         window = kernel(pack, bank, s_idx, p_idx, ranges=ranges)
         err = float((window - plain_fn(pack, bank, s_idx, p_idx, ranges=ranges)).abs().max())
         full = kernel(pack, bank, s_idx, p_idx)
         require(bool(torch.isfinite(window).all()) and err <= TOL[key],
                 f"{name} over the envelopes disagrees with its plain version: {err}")
+        per_class = pair_class_rates(f"{name} over the envelope windows (CUDA events)",
+                                     launches_of, pack, bank, s_idx, p_idx, nodes, 3,
+                                     ranges=ranges)
+        _f, nbytes = pair_work(pack, lengths, s_idx, p_idx, 0, 12.0 * len(s_idx))
         print(f"# {name} over {len(rows)} envelope windows: max abs {err!r} against plain "
               f"(tol {TOL[key]}); mean window score {float(window.mean())!r} nats, whole "
-              f"sequence {float(full.mean())!r}", flush=True)
+              f"sequence {float(full.mean())!r}; {sum(per_class.values())!r} ms (CUDA events), "
+              f"{json.dumps(bound(cells * FLOPS_PER_CELL[name], nbytes))}", flush=True)
     state.update(pair_launches=pair_launches)
+
+
+def domain_bounds(pack, bank, pairs, domains):
+    """The bounds (:func:`bound`) of the domain kernels on the main path's
+    work: kernels D, E and J over every F3 candidate pair, F and G (and K,
+    which does both) over each envelope ``domains`` holds (the domains
+    ``StreamDomains.define`` found on them), cells counted as phase 2
+    counts them; inputs read once, the outputs a row writes (trajectories,
+    posteriors, bfloat16 planes, scores) written once."""
+    lengths = bank.lengths.cpu().numpy().astype(numpy.float64)
+    s_c, p_c = (numpy.array([pair[k] for pair in pairs], numpy.int64) for k in (0, 1))
+    env = [(s, p, d.ienv, d.jenv) for (s, p), doms in domains.items() for d in doms]
+    s_e, p_e, iv, jv = (numpy.array([row[k] for row in env], numpy.int64) for k in range(4))
+    L_c, L_e = pack.lens_host[s_c].astype(numpy.float64), pack.lens_host[s_e].astype(numpy.float64)
+    cells_e = L_e * lengths[p_e]
+    # bytes a residue a row: D's five trajectories, E's and J's posteriors
+    # (mocc, pB; J also its score's trajectory), and per cell F's two
+    # bfloat16 planes, which G reads back over the envelope
+    work = {
+        "posterior_fwd": pair_work(pack, lengths, s_c, p_c, FLOPS_PER_CELL["posterior_fwd"],
+                                   20.0 * L_c.sum() + 4.0 * len(s_c)),
+        "posterior_bwd": pair_work(pack, lengths, s_c, p_c, FLOPS_PER_CELL["posterior_bwd"],
+                                   8.0 * L_c.sum() + 20.0 * L_c.sum()),
+        "pair_posterior": pair_work(pack, lengths, s_c, p_c, FLOPS_PER_CELL["pair_posterior"],
+                                    12.0 * L_c.sum() + 4.0 * len(s_c)),
+    }
+    f_flops, f_bytes = pair_work(pack, lengths, s_e, p_e, FLOPS_PER_CELL["align_bwd"],
+                                 4.0 * cells_e.sum())
+    work["align_bwd"] = (f_flops, f_bytes)
+    g_cells = float((jv * lengths[p_e]).sum())
+    work["align_fwd"] = (FLOPS_PER_CELL["align_fwd"] * g_cells,
+                         pair_work(pack, lengths, s_e, p_e, 0,
+                                   4.0 * float(((jv - iv + 1) * lengths[p_e]).sum()))[1])
+    k_flops = float(((FLOPS_PER_CELL["align_bwd"] * (L_e - iv + 1)
+                      + FLOPS_PER_CELL["align_fwd"] * jv) * lengths[p_e]).sum())
+    work["pair_align"] = (k_flops, pair_work(pack, lengths, s_e, p_e, 0, 100.0 * len(s_e))[1])
+    print(f"# domain kernels' bounds on phase 6's define ({len(s_c)} candidate pairs, "
+          f"{len(s_e)} envelopes): " + json.dumps(
+              {name: {**bound(*w), "flops": w[0], "bytes": w[1]} for name, w in work.items()}),
+          flush=True)
 
 
 def phase_cli(device, state):

@@ -44,16 +44,16 @@ _SIGNATURES = {
     # xs, offsets, lens, loops, moves, n_seqs, e_log, tbm, prof_idx,
     # n_prof, model_len, P, Mp, width, out, stream
     "gecco_ssv_filter": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P],
-    "gecco_msv_filter": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P],
+    # kernel I takes the sequences' order (SeqPack.by_length) after n_seqs
+    "gecco_msv_filter": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P],
     # xs, offsets, lens, loops, moves, pair_seq, pair_prof, n_pairs,
     # e, trans, model_len, P, Mp, width, blocks, n_blocks (the block
     # schedule of hmm.kernels.pair_blocks), starts, ends (both null for
     # whole sequences), out, stream
     "gecco_viterbi_pairs": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _I, _P,
                             _P, _P, _P],
-    # the same without blocks and n_blocks
-    "gecco_forward_pairs": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P,
-                            _P],
+    "gecco_forward_pairs": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _I, _P,
+                            _P, _P, _P],
     # xs, offsets, lens, loops, moves, n_seqs, e_odds, trans, prof_idx,
     # n_prof, model_len, P, Mp, width, viterbi, tile, out, stream
     "gecco_dense_scores": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P,

@@ -1,5 +1,6 @@
 // The rescaled Forward step (probability space) shared by kernel C
-// (forward.cu), kernel D (stream_fwd.cu), kernels G and K (align_pass.cuh)
+// (forward.cu, at 2,048 and 4,096 nodes), kernel D (stream_fwd.cu),
+// kernels G and K (align_pass.cuh)
 // and kernel J (pair_posterior.cu).
 //
 // One block scores one row; thread t holds nodes [t*CHUNK, (t+1)*CHUNK)
@@ -22,7 +23,7 @@
 // across lanes, the delete chain is the lane-local composition and a
 // five-step shuffle scan of its offsets alone (the maps' slopes are
 // products of tdd, fixed by the profile: ChainScan holds them), E one
-// warp sum; no barrier.  Kernel H uses it.
+// warp sum; no barrier.  Kernels C (up to 1,024 nodes) and H use it.
 #pragma once
 
 #include "common.cuh"

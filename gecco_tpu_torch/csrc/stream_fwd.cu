@@ -2,17 +2,18 @@
 //
 // Replaces gecco_tpu/hmm/stream.py::_stream_fwd (the first pass of
 // StreamDomains' posterior decoding).  It is kernel C's Forward
-// (forward_step.cuh, rescaled every residue) plus, after each residue i,
+// (forward_step.cuh, rescaled every residue, the block-level step) plus, after each residue i,
 // the rescaled N, B, J, C and the running log scale written to
 // traj[0..4][row][i], and the final score log(C * move + 1e-38) + ls.
 // Trajectories are zero from the row's length to the launch's stride; an
 // empty sequence scores -1e30.
 //
-// Bound on the H100: as kernel C, the latency of the per-residue chain;
-// the trajectory writes are 20 bytes a residue, one thread's stores.
+// Bound on the H100: the latency of the per-residue chain; the
+// trajectory writes are 20 bytes a residue, one thread's stores.
 //
-// Design: kernel C's (one block per row, CHUNK nodes a thread, transitions
-// in shared memory, emission rows read by residue index).  The TPU
+// Design: one block per row, CHUNK nodes a thread, transitions in shared
+// memory, emission rows read by residue index (kernel C's design at 2,048
+// and 4,096 nodes).  The TPU
 // kernel's L-chunk grid and its VMEM carries have no counterpart: the
 // residue loop runs inside the block.
 #include "forward_step.cuh"

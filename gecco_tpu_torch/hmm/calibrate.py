@@ -19,9 +19,17 @@ from .kernels import SeqPack, ssv_filter, viterbi_pairs
 from .profile import SearchProfile, null1_score
 from .stream import forward_pairs
 
-__all__ = ["calibrate"]
+__all__ = ["calibrate", "background_sequences"]
 
 LOG2 = math.log(2.0)
+
+
+def background_sequences(n: int = 256, L: int = 256, seed: int = 0) -> List["numpy.ndarray"]:
+    """The ``n`` random background sequences of length ``L`` that
+    :func:`calibrate` scores (the JAX package's draws for the same ``seed``)."""
+    rng = numpy.random.default_rng(seed)
+    p_bg = BACKGROUND_F / BACKGROUND_F.sum()
+    return [rng.choice(20, size=L, p=p_bg).astype(numpy.int32) for _ in range(n)]
 
 
 def calibrate(
@@ -43,11 +51,7 @@ def calibrate(
     if not profiles:
         return profiles
     device = resolve_device(device)
-    rng = numpy.random.default_rng(seed)
-    p_bg = BACKGROUND_F / BACKGROUND_F.sum()
-    seqs = [
-        rng.choice(20, size=L, p=p_bg).astype(numpy.int32) for _ in range(n)
-    ]
+    seqs = background_sequences(n, L, seed)
     bank = TorchBank.build(profiles, device)
     pack = SeqPack(seqs, device)
     P = len(profiles)

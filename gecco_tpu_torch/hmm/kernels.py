@@ -35,8 +35,9 @@ tensors launch the kernel (``csrc/``) or raise.  The plain versions
 compute the same function and are what the kernels are checked against.
 """
 
+import functools
 import math
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy
 import torch
@@ -46,9 +47,9 @@ from .bank import NEG, TorchBank
 from .profile import length_model, null1_score
 
 __all__ = [
-    "SeqPack", "ssv_filter", "ssv_filter_plain", "msv_filter", "msv_filter_plain", "pack_mask",
-    "viterbi_pairs", "viterbi_pairs_plain", "flatten_pairs", "pair_blocks",
-    "dense_scores", "dense_scores_plain",
+    "SeqPack", "ssv_filter", "ssv_filter_plain", "msv_filter", "msv_filter_plain", "msv_nodes",
+    "msv_tile", "pack_mask", "viterbi_pairs", "viterbi_pairs_plain", "flatten_pairs", "pair_blocks",
+    "pair_launches", "run_launches", "viterbi_launches", "dense_scores", "dense_scores_plain",
 ]
 
 LOG2 = math.log(2.0)
@@ -67,6 +68,10 @@ DENSE_TILE = 64
 #: widest class in which kernel H runs a warp per pair; wider classes run
 #: a block of the class's whole width per pair
 DENSE_WARP_WIDTH = 1024
+#: lanes of a warp that score one sequence in kernel I's width classes
+#: (``msv.cu``'s ``MSV_LANES``; 32 where not listed): a warp scores 32 / G
+#: sequences side by side
+MSV_LANES = {128: 4, 256: 8, 512: 16}
 
 
 def dense_nodes(bank: "TorchBank") -> "numpy.ndarray":
@@ -76,6 +81,24 @@ def dense_nodes(bank: "TorchBank") -> "numpy.ndarray":
     class's width above it."""
     lengths = bank.host.lengths.astype(numpy.int64)
     return numpy.where(bank.class_of <= DENSE_WARP_WIDTH, 32 * -(-lengths // 32), bank.class_of)
+
+
+def msv_tile(width: int) -> int:
+    """Sequences of one profile that a block of kernel I takes in the
+    ``width`` class below 4,096 nodes, in the order of
+    :meth:`SeqPack.by_length` (``msv.cu``'s ``MSV_TILE_OF``): 32, or one
+    take of 32 / G sequences for each of its 8 warps."""
+    return max(32, 8 * 32 // MSV_LANES.get(width, 32))
+
+
+def msv_nodes(bank: "TorchBank") -> "numpy.ndarray":
+    """Nodes of a DP row that kernel I computes for each profile of
+    ``bank``: G ceil(M / G) for the class's G lanes a sequence (``msv.cu``:
+    ceil(M / G) nodes a lane), but the class's whole width in the 2,048-node
+    class, which runs one body."""
+    lengths = bank.host.lengths.astype(numpy.int64)
+    lanes = numpy.array([MSV_LANES.get(int(w), 32) for w in bank.class_of], dtype=numpy.int64)
+    return numpy.where(bank.class_of == 2048, 2048, lanes * -(-lengths // lanes))
 
 
 class SeqPack:
@@ -124,6 +147,15 @@ class SeqPack:
         self.nullsc = put(nullsc)
         self.counts = put(counts)
         self._padded = None
+        self._by_length = None
+
+    def by_length(self) -> torch.Tensor:
+        """``[S]`` int32 sequence indices, longest first (ties in index
+        order): the order in which kernel I's blocks take the sequences."""
+        if self._by_length is None:
+            order = numpy.argsort(-self.lens_host.astype(numpy.int64), kind="stable")
+            self._by_length = torch.as_tensor(order.astype(numpy.int32), device=self.device)
+        return self._by_length
 
     def padded(self) -> torch.Tensor:
         """``[S, Lmax]`` int64 residues, zero past each length (plain paths)."""
@@ -175,10 +207,17 @@ def _kernel_device(pack: SeqPack, bank: TorchBank) -> str:
 # kernels A and I: the F1 filters over every pair
 # ---------------------------------------------------------------------------
 
-def _launch_filter(fn_name: str, counter: str, pack: SeqPack, bank: TorchBank) -> torch.Tensor:
-    """Launch filter kernel ``fn_name`` once per width class: ``[S, P]`` nats."""
+def _launch_filter(fn_name: str, counter: str, pack: SeqPack, bank: TorchBank,
+                   order: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch filter kernel ``fn_name`` once per width class: ``[S, P]`` nats.
+    ``order`` (kernel I's :meth:`SeqPack.by_length`) goes after the
+    sequence count."""
     _check_pack_bank(pack, bank, log_space=True)
     _check(bank.tbm_log, torch.float32, "tbm", bank.device)
+    extra = ()
+    if order is not None:
+        _check(order, torch.int32, "sequence order", bank.device)
+        extra = (order.data_ptr(),)
     out = torch.empty((pack.S, bank.P), dtype=torch.float32, device=bank.device)
     if pack.S == 0:
         return out
@@ -189,7 +228,7 @@ def _launch_filter(fn_name: str, counter: str, pack: SeqPack, bank: TorchBank) -
             _check(idx, torch.int32, "profile index", bank.device)
             code = fn(
                 pack.xs.data_ptr(), pack.offsets.data_ptr(), pack.lens.data_ptr(),
-                pack.loops_log.data_ptr(), pack.moves_log.data_ptr(), pack.S,
+                pack.loops_log.data_ptr(), pack.moves_log.data_ptr(), pack.S, *extra,
                 bank.e_log.data_ptr(), bank.tbm_log.data_ptr(), idx.data_ptr(),
                 int(idx.numel()), bank.lengths.data_ptr(), bank.P, bank.Mp, width,
                 out.data_ptr(), stream,
@@ -239,7 +278,7 @@ def msv_filter(pack: SeqPack, bank: TorchBank) -> torch.Tensor:
     """MSV filter scores (nats) of every pair, ``[S, P]`` on the device."""
     if _kernel_device(pack, bank) == "cpu":
         return msv_filter_plain(pack, bank)
-    return _launch_filter("gecco_msv_filter", "msv_filter", pack, bank)
+    return _launch_filter("gecco_msv_filter", "msv_filter", pack, bank, pack.by_length())
 
 
 def msv_filter_plain(pack: SeqPack, bank: TorchBank) -> torch.Tensor:
@@ -253,12 +292,23 @@ def msv_filter_plain(pack: SeqPack, bank: TorchBank) -> torch.Tensor:
         score = C + move                     # after the last residue
 
     from ``M = NEG, N = 0, B = move, J = C = NEG``; an empty sequence
-    scores ``NEG``.
+    scores ``NEG``.  (J and C are equal at every residue; kernel I keeps J
+    alone.)
     """
+    out = torch.full((pack.S, bank.P), NEG, dtype=torch.float32, device=bank.device)
+    for prof, _J, C in msv_states_plain(pack, bank):
+        out[:, prof] = C + pack.moves_log[:, None]
+    out[pack.lens.long() == 0] = NEG
+    return out
+
+
+def msv_states_plain(pack: SeqPack, bank: TorchBank):
+    """The plain MSV recurrence of :func:`msv_filter_plain`, each width
+    class in turn: yields ``(profiles, J, C)``, the ``[S, Pc]`` J and C
+    states after each sequence's last residue."""
     device = bank.device
-    out = torch.full((pack.S, bank.P), NEG, dtype=torch.float32, device=device)
     if pack.S == 0:
-        return out
+        return
     xs = pack.padded()
     lens = pack.lens.long()
     loop = pack.loops_log[:, None]
@@ -286,9 +336,7 @@ def msv_filter_plain(pack: SeqPack, bank: TorchBank) -> torch.Tensor:
             Bn = torch.maximum(Nn, Jn) + move
             M = torch.where(alive[..., None], Mn, M)
             N, B, J, C = (torch.where(alive, a, b) for a, b in ((Nn, N), (Bn, B), (Jn, J), (Cn, C)))
-        out[:, prof] = C + move
-    out[lens == 0] = NEG
-    return out
+        yield prof, J, C
 
 
 def pack_mask(scores: torch.Tensor, pack: SeqPack, bank: TorchBank,
@@ -412,17 +460,19 @@ def pair_blocks(class_of, prof, rows_per_block: int):
     return order, numpy.stack([first, count], 1).astype(numpy.int32)
 
 
-def launch_pairs(fn_name: str, counter: str, pack: SeqPack, bank: TorchBank,
-                 seq_idx, prof_idx, log_space: bool, ranges=None,
-                 rows_per_block: int = 0) -> torch.Tensor:
-    """Launch a pair kernel once per width class; scores in input order.
+def pair_launches(fn_name: str, counter: str, pack: SeqPack, bank: TorchBank,
+                  seq_idx, prof_idx, log_space: bool, ranges=None, rows_per_block: int = 0):
+    """A pair kernel's launches over these pairs, prepared on the device.
 
-    ``ranges`` (host, checked here before the upload) gives each pair a
-    residue window; without it the kernel takes null window pointers and
-    scores whole sequences.  With ``rows_per_block`` the rows go in the
-    order of :func:`pair_blocks` and each launch also takes its class's
-    block table and block count before the windows; without it they are
-    ordered by width class alone.
+    Returns ``(launches, finish)``: ``launches`` maps each width class of
+    the pairs to a function that launches the kernel once over that
+    class's rows, and ``finish()`` returns the scores in input order once
+    every class has run.  ``ranges`` (host, checked here before the
+    upload) gives each pair a residue window; without it the kernel takes
+    null window pointers and scores whole sequences.  With
+    ``rows_per_block`` the rows go in the order of :func:`pair_blocks` and
+    each launch also takes its class's block table and block count before
+    the windows; without it they are ordered by width class alone.
     """
     _check_pack_bank(pack, bank, log_space)
     seq_idx = numpy.asarray(seq_idx, dtype=numpy.int64)
@@ -430,7 +480,7 @@ def launch_pairs(fn_name: str, counter: str, pack: SeqPack, bank: TorchBank,
     n = len(seq_idx)
     out = torch.empty(n, dtype=torch.float32, device=bank.device)
     if n == 0:
-        return out
+        return {}, lambda: out
     if seq_idx.min() < 0 or seq_idx.max() >= pack.S:
         raise IndexError("pair sequence index out of range")
     if prof_idx.min() < 0 or prof_idx.max() >= bank.P:
@@ -450,6 +500,7 @@ def launch_pairs(fn_name: str, counter: str, pack: SeqPack, bank: TorchBank,
             torch.as_tensor(numpy.ascontiguousarray(ranges[order, k], dtype=numpy.int32),
                             device=bank.device) for k in (0, 1))
     scores = torch.empty(n, dtype=torch.float32, device=bank.device)
+    launches = {}
     bounds = numpy.flatnonzero(numpy.diff(width[order])) + 1
     for a, b in zip(numpy.concatenate(([0], bounds)), numpy.concatenate((bounds, [n]))):
         table = ()
@@ -459,10 +510,24 @@ def launch_pairs(fn_name: str, counter: str, pack: SeqPack, bank: TorchBank,
             mine[:, 0] -= a
             table = (torch.as_tensor(mine, device=bank.device), len(mine))
         window = (None, None) if ranges is None else (starts[a:b], ends[a:b])
-        launch_rows(fn_name, counter, pack, bank, seq_t[a:b], prof_t[a:b],
-                    int(width[order[a]]), *table, *window, scores[a:b], log_space=log_space)
-    out[torch.as_tensor(order, device=bank.device)] = scores
-    return out
+        w = int(width[order[a]])
+        launches[w] = functools.partial(
+            launch_rows, fn_name, counter, pack, bank, seq_t[a:b], prof_t[a:b], w, *table,
+            *window, scores[a:b], log_space=log_space)
+    order_t = torch.as_tensor(order, device=bank.device)
+
+    def finish() -> torch.Tensor:
+        out[order_t] = scores
+        return out
+
+    return launches, finish
+
+
+def run_launches(launches, finish) -> torch.Tensor:
+    """Run the launches of :func:`pair_launches`; scores in input order."""
+    for launch in launches.values():
+        launch()
+    return finish()
 
 
 def window_rows(pack: SeqPack, s: torch.Tensor, ranges: torch.Tensor):
@@ -509,9 +574,15 @@ def viterbi_pairs(pack: SeqPack, bank: TorchBank, seq_idx, prof_idx,
     """
     if _kernel_device(pack, bank) == "cpu":
         return viterbi_pairs_plain(pack, bank, seq_idx, prof_idx, ranges=ranges)
-    return launch_pairs("gecco_viterbi_pairs", "viterbi_pairs", pack, bank,
-                        seq_idx, prof_idx, log_space=True, ranges=ranges,
-                        rows_per_block=VITERBI_BLOCK_ROWS)
+    return run_launches(*viterbi_launches(pack, bank, seq_idx, prof_idx, ranges=ranges))
+
+
+def viterbi_launches(pack: SeqPack, bank: TorchBank, seq_idx, prof_idx, ranges=None):
+    """Kernel B's launches over these pairs, one per width class, prepared
+    on the device (:func:`pair_launches`); CUDA tensors only."""
+    return pair_launches("gecco_viterbi_pairs", "viterbi_pairs", pack, bank,
+                         seq_idx, prof_idx, log_space=True, ranges=ranges,
+                         rows_per_block=VITERBI_BLOCK_ROWS)
 
 
 def viterbi_pairs_plain(pack: SeqPack, bank: TorchBank, seq_idx, prof_idx,

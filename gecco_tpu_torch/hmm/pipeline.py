@@ -148,6 +148,10 @@ class SearchPipeline:
         #: the (sequence, profile) pairs of the last search that reached
         #: domain definition (``stage_counts["F3"]`` of them)
         self.candidate_pairs: List[Tuple[int, int]] = []
+        #: the (sequence, profile) index arrays the F3 Forward of the last
+        #: search rescored (``stage_counts["F2"]`` pairs; None with
+        #: ``max_filter`` or when none survived F2)
+        self.rescored_pairs: Optional[Tuple["numpy.ndarray", "numpy.ndarray"]] = None
         self._bank = ProfileBank.build(self.profiles) if self.profiles else None
         self._torch_bank: Optional[TorchBank] = None
         self._logratio = None
@@ -187,6 +191,7 @@ class SearchPipeline:
         self.stage_cells = {}
         self.host_pairs = 0
         self.candidate_pairs = []
+        self.rescored_pairs = None
         if not self.profiles or not sequences:
             return []
         host = self._bank
@@ -355,6 +360,7 @@ class SearchPipeline:
         if not surviving:
             return None
         s_arr, p_arr = flatten_pairs(surviving)
+        self.rescored_pairs = (s_arr, p_arr)
         vals = scorers["forward"](pack, bank, s_arr, p_arr).cpu().numpy().astype(numpy.float64)
         self.stage_seconds["forward"] = time.perf_counter() - t_stage
         return vals, s_arr, p_arr, filter_extra(s_arr, p_arr) / LOG2

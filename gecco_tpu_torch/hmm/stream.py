@@ -38,13 +38,13 @@ from . import engine
 from .bank import NEG, TorchBank
 from .engine import DomainHit, exp_surv
 from .kernels import (
-    SeqPack, _check, _forward_step, _kernel_device, _shift_right, check_ranges, launch_pairs,
-    launch_rows, pair_groups, window_rows,
+    SeqPack, _check, _forward_step, _kernel_device, _shift_right, check_ranges, launch_rows,
+    pair_groups, pair_launches, run_launches, window_rows,
 )
 from .profile import length_model, null1_score
 
 __all__ = [
-    "forward_pairs", "forward_pairs_plain",
+    "forward_pairs", "forward_pairs_plain", "forward_launches",
     "posterior_fwd", "posterior_fwd_plain", "posterior_bwd", "posterior_bwd_plain",
     "envelopes", "align_bwd", "align_bwd_plain", "align_fwd", "align_fwd_plain",
     "DeviceDomains", "StreamDomains", "assemble_domains",
@@ -58,6 +58,9 @@ _MAX_LPS = 4096   # streams beyond this fall back to the host engine
 #: fixed device slots: regions per pair, envelopes per region
 _N_REGIONS = 8
 _N_ENVS = 4
+#: most rows of one profile that a block of kernel C takes at widths 128
+#: to 1,024 (its warps take them in turn; ``hmm.kernels.pair_blocks``)
+FORWARD_BLOCK_ROWS = 16
 
 
 def forward_pairs(pack: SeqPack, bank: TorchBank, seq_idx, prof_idx,
@@ -75,8 +78,15 @@ def forward_pairs(pack: SeqPack, bank: TorchBank, seq_idx, prof_idx,
     """
     if _kernel_device(pack, bank) == "cpu":
         return forward_pairs_plain(pack, bank, seq_idx, prof_idx, ranges=ranges)
-    return launch_pairs("gecco_forward_pairs", "forward_pairs", pack, bank,
-                        seq_idx, prof_idx, log_space=False, ranges=ranges)
+    return run_launches(*forward_launches(pack, bank, seq_idx, prof_idx, ranges=ranges))
+
+
+def forward_launches(pack: SeqPack, bank: TorchBank, seq_idx, prof_idx, ranges=None):
+    """Kernel C's launches over these pairs, one per width class, prepared
+    on the device (``hmm.kernels.pair_launches``); CUDA tensors only."""
+    return pair_launches("gecco_forward_pairs", "forward_pairs", pack, bank,
+                         seq_idx, prof_idx, log_space=False, ranges=ranges,
+                         rows_per_block=FORWARD_BLOCK_ROWS)
 
 
 def _affine_scan_rev(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -19,13 +19,14 @@ from gecco_tpu_torch.hmm.bank import NEG, TorchBank
 from gecco_tpu_torch.hmm.domains import (
     PairDomains, pair_align, pair_align_plain, pair_posterior, pair_posterior_plain)
 from gecco_tpu_torch.hmm.kernels import (
-    DENSE_TILE, VITERBI_BLOCK_ROWS, SeqPack, dense_scores, dense_scores_plain, msv_filter, msv_filter_plain,
-    ssv_filter, ssv_filter_plain, viterbi_pairs, viterbi_pairs_plain)
+    DENSE_TILE, VITERBI_BLOCK_ROWS, SeqPack, dense_scores, dense_scores_plain, msv_filter,
+    msv_filter_plain, msv_tile, ssv_filter, ssv_filter_plain, viterbi_pairs,
+    viterbi_pairs_plain)
 from gecco_tpu_torch.hmm.pipeline import SearchPipeline
 from gecco_tpu_torch.hmm.synthetic import (
     consensus_proteins, plant_domain, synthetic_profiles, synthetic_proteins)
 from gecco_tpu_torch.hmm.stream import (
-    StreamDomains, align_bwd, align_bwd_plain, align_fwd, align_fwd_plain, envelopes,
+    FORWARD_BLOCK_ROWS, StreamDomains, align_bwd, align_bwd_plain, align_fwd, align_fwd_plain, envelopes,
     forward_pairs, forward_pairs_plain, posterior_bwd, posterior_bwd_plain, posterior_fwd,
     posterior_fwd_plain)
 
@@ -195,6 +196,103 @@ def test_viterbi_kernel_edges(edge_workload, windows):
         full = torch.as_tensor((ranges[:, 0] == 0) & (ranges[:, 1] == lens) & (lens > 0),
                                device=pack.device)
         assert torch.equal(got[full], viterbi_pairs(pack, bank, s_idx, p_idx)[full])
+
+
+#: model lengths on both sides of 32 k nodes, where kernels I and C change
+#: the nodes a lane (C = ceil(M / 32)), in every width class
+NODE_MODELS = (31, 32, 33, 63, 64, 65, 159, 160, 161, 415, 416, 417, 831, 832, 833, 1100, 2100)
+
+
+@pytest.fixture(scope="module")
+def node_workload(device):
+    """Kernels I and C where the nodes a lane change: the profiles of
+    ``NODE_MODELS`` (every class 128 to 4,096), and one sequence more than
+    kernel I's largest tile (``msv_tile``), of 0 to 2,000 residues, so that
+    the last tile of the 128-node class holds one sequence and a block of
+    kernel C takes rows that differ widely in length; half carry a planted
+    domain."""
+    profiles = [gm for seed, m in enumerate(NODE_MODELS)
+                for gm in synthetic_profiles(1, min_length=m, max_length=m, seed=50 + seed)]
+    rng = numpy.random.default_rng(5)
+    lengths = [0, 1, 2, 3, 5, 31, 32, 33, 64, 127, 300, 700, 1500, 2000]
+    lengths += rng.integers(20, 600, msv_tile(128) + 1 - len(lengths)).tolist()
+    seqs = [rng.integers(0, 20, n).astype(numpy.int32) for n in lengths]
+    for i in range(8, len(seqs), 2):
+        gm = profiles[i % len(profiles)]
+        seqs[i] = plant_domain(seqs[i], gm, rng, max_len=min(gm.M, len(seqs[i]) // 2, 200),
+                               divergence=0.2)
+    bank = TorchBank.build(profiles, device)
+    assert [w for w, _ in bank.classes] == [128, 256, 512, 1024, 2048, 4096]
+    return profiles, seqs, SeqPack(seqs, device), bank
+
+
+@pytest.mark.parametrize("bank_of", ["edge", "nodes"])
+def test_msv_kernel_edges(edge_workload, node_workload, bank_of):
+    """Kernel I against its plain version bit for bit, every class 128 to
+    4,096 in one launch each: the edge bank (models of every class's width
+    - 1 and width, sequences of 0 to 2,000 residues, 46 sequences: a tile
+    and a ragged one at 256 nodes and above) and the node bank (models at
+    32 k - 1, 32 k and 32 k + 1 nodes, one sequence past the largest tile).
+    The largest difference is printed (0.0 expected)."""
+    _profiles, _seqs, pack, bank = edge_workload if bank_of == "edge" else node_workload
+    before = _build.launches["msv_filter"]
+    got = msv_filter(pack, bank)
+    torch.cuda.synchronize()
+    assert _build.launches["msv_filter"] == before + len(bank.classes)
+    want = msv_filter_plain(pack, bank)
+    err = float((got - want).abs().max())
+    print(f"kernel I on the {bank_of} bank, {pack.S} sequences: largest difference {err!r} nats, "
+          f"{int((got != want).sum())} scores not bit-equal")
+    assert torch.equal(got, want)
+    assert (got[torch.as_tensor(pack.lens_host == 0, device=pack.device)] == NEG).all()
+
+
+@pytest.mark.parametrize("windows", [False, True], ids=["whole", "windows"])
+def test_forward_kernel_edges(node_workload, device, windows):
+    """Kernel C against its plain version on the node bank, every class in
+    one launch each: every sequence against every profile (each profile's
+    rows more than a block of ``FORWARD_BLOCK_ROWS``, of 0 to 2,000
+    residues) and a sequence of 5,000 residues against the 128- and
+    4,096-node classes.  With windows, empty ones (-inf) and ``[0, L)``
+    ones (bit-equal to the launch without ``ranges``).  The largest
+    difference is printed."""
+    profiles, seqs, _pack, bank = node_workload
+    rng = numpy.random.default_rng(8)
+    pack = SeqPack(seqs + [rng.integers(0, 20, 5000).astype(numpy.int32)], device)
+    long = pack.S - 1
+    s_idx = numpy.repeat(numpy.arange(long), len(profiles))
+    p_idx = numpy.tile(numpy.arange(len(profiles)), long)
+    outer = numpy.flatnonzero(numpy.isin(bank.class_of, (128, 4096)))
+    s_idx = numpy.concatenate([s_idx, numpy.full(len(outer), long)])
+    p_idx = numpy.concatenate([p_idx, outer])
+    assert (numpy.bincount(p_idx) > FORWARD_BLOCK_ROWS).all()
+    lens = pack.lens_host[s_idx].astype(numpy.int64)
+    ranges = None
+    if windows:
+        start = (rng.random(len(lens)) * lens).astype(numpy.int64)
+        end = start + (rng.random(len(lens)) * (lens - start)).astype(numpy.int64)
+        end[::5] = start[::5]                       # empty windows
+        start[1::5], end[1::5] = 0, lens[1::5]      # [0, L) windows
+        ranges = numpy.stack([start, end], 1)
+    before = _build.launches["forward_pairs"]
+    got = forward_pairs(pack, bank, s_idx, p_idx, ranges=ranges)
+    torch.cuda.synchronize()
+    assert _build.launches["forward_pairs"] == before + len(bank.classes)
+    want = forward_pairs_plain(pack, bank, s_idx, p_idx, ranges=ranges)
+    finite = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), finite)
+    err = float((got[finite] - want[finite]).abs().max())
+    print(f"kernel C on the node bank ({'windows' if windows else 'whole sequences'}, "
+          f"{len(s_idx)} pairs): largest difference {err!r} nats")
+    assert err <= 1e-3
+    if windows:
+        empty = torch.as_tensor(ranges[:, 0] == ranges[:, 1], device=pack.device)
+        assert torch.isneginf(got[empty]).all()
+        full = torch.as_tensor((ranges[:, 0] == 0) & (ranges[:, 1] == lens) & (lens > 0),
+                               device=pack.device)
+        assert torch.equal(got[full], forward_pairs(pack, bank, s_idx, p_idx)[full])
+    else:
+        assert (got[torch.as_tensor(lens == 0, device=pack.device)] == NEG).all()
 
 
 @pytest.mark.parametrize("kernel, plain, tol", [

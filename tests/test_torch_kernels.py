@@ -23,7 +23,9 @@ from gecco_tpu_torch.hmm.bank import NEG, TorchBank, width_class
 from gecco_tpu_torch.hmm.kernels import (
     SeqPack, flatten_pairs, pack_mask, pair_blocks, ssv_filter, viterbi_pairs)
 from gecco_tpu_torch.hmm.profile import profiles_from_arrays
-from gecco_tpu_torch.hmm.stream import forward_pairs
+from gecco_tpu_torch.hmm import kernels as port_kernels
+from gecco_tpu_torch.hmm.stream import FORWARD_BLOCK_ROWS, forward_launches, forward_pairs
+from gecco_tpu_torch.hmm.stream import forward_pairs_plain
 from gecco_tpu_torch.hmm.synthetic import consensus_proteins
 
 torch.set_num_threads(1)
@@ -190,7 +192,7 @@ def test_pair_blocks_schedule(seed):
     assert (numpy.diff(first) > 0).all()
     # a class's rows are contiguous, so each launch takes a run of blocks
     assert (numpy.diff(class_of[prof[order]]) >= 0).all()
-    # scores of the rows in launch order, scattered back as launch_pairs does
+    # scores of the rows in launch order, scattered back as pair_launches does
     out = numpy.empty(n, dtype=numpy.int64)
     out[order] = prof[order]
     numpy.testing.assert_array_equal(out, prof)
@@ -199,6 +201,58 @@ def test_pair_blocks_schedule(seed):
 def test_pair_blocks_empty():
     order, blocks = pair_blocks(numpy.array([128, 256]), numpy.zeros(0, dtype=int), 16)
     assert order.shape == (0,) and blocks.shape == (0, 2)
+
+
+@pytest.mark.parametrize("windows", [False, True], ids=["whole", "windows"])
+def test_forward_launches_schedule(workload, monkeypatch, windows):
+    """The host side of kernel C's launch: one launch a width class, whose
+    block table covers every row of the class once, each block within one
+    profile and at most ``FORWARD_BLOCK_ROWS`` rows, and whose windows
+    follow their rows.  Each launch is stood in for by the plain version
+    over its blocks' rows (the CUDA launch needs a card); the scores come
+    back in input order, equal to the plain version's over all pairs."""
+    profiles, seqs, _host, bank = workload
+    pack = SeqPack(seqs, "cpu")
+    rng = numpy.random.default_rng(3)
+    n = 3 * FORWARD_BLOCK_ROWS + 5
+    s_arr = rng.integers(0, len(seqs), n)
+    p_arr = rng.integers(0, len(profiles), n)
+    p_arr[:FORWARD_BLOCK_ROWS + 2] = 1          # one profile over more than a block
+    ranges = None
+    if windows:
+        lens = pack.lens_host[s_arr].astype(numpy.int64)
+        start = (rng.random(n) * lens).astype(numpy.int64)
+        end = start + (rng.random(n) * (lens - start)).astype(numpy.int64)
+        ranges = numpy.stack([start, end], 1)
+    seen = []
+
+    def launch_rows(fn_name, counter, pack_, bank_, seq, prof, width, table, n_blocks,
+                    starts, ends, scores, log_space):
+        assert (fn_name, counter, log_space) == ("gecco_forward_pairs", "forward_pairs", False)
+        assert (starts is None) == (ends is None) == (not windows)
+        assert table.shape == (n_blocks, 2) and table.dtype == torch.int32
+        covered = numpy.zeros(len(seq), dtype=int)
+        for first, count in table.tolist():
+            assert 1 <= count <= FORWARD_BLOCK_ROWS
+            rows = slice(first, first + count)
+            covered[rows] += 1
+            assert len(set(prof[rows].tolist())) == 1
+            window = None if starts is None else torch.stack([starts[rows], ends[rows]], 1)
+            scores[rows] = forward_pairs_plain(pack_, bank_, seq[rows].numpy(),
+                                               prof[rows].numpy(), ranges=window)
+        assert (covered == 1).all()
+        assert set(bank_.class_of[prof.numpy()].tolist()) == {width}
+        seen.append(width)
+
+    monkeypatch.setattr(port_kernels, "launch_rows", launch_rows)
+    launches, finish = forward_launches(pack, bank, s_arr, p_arr, ranges=ranges)
+    assert sorted(launches) == sorted(set(bank.class_of[p_arr].tolist()))
+    for launch in launches.values():
+        launch()
+    assert sorted(seen) == sorted(launches)
+    got = finish()
+    want = forward_pairs_plain(pack, bank, s_arr, p_arr, ranges=ranges)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
 
 
 def test_forward_pairs_match_pallas_and_host(workload):

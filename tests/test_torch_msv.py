@@ -14,6 +14,8 @@ identical funnel, hits and domain coordinates, sequence scores within
 5e-3 bits, domain scores within 5e-2.
 """
 
+import dataclasses
+
 import numpy
 import pytest
 import torch
@@ -25,7 +27,9 @@ from gecco_tpu.hmm.pipeline import SearchPipeline as JaxSearchPipeline
 from gecco_tpu.hmm.synthetic import plant_domain, synthetic_profiles, synthetic_proteins
 
 from gecco_tpu_torch.hmm.bank import NEG, TorchBank
-from gecco_tpu_torch.hmm.kernels import SeqPack, msv_filter, pack_mask, ssv_filter
+from gecco_tpu_torch.hmm.kernels import (
+    MSV_LANES, SeqPack, msv_filter, msv_filter_plain, msv_nodes, msv_states_plain, msv_tile,
+    pack_mask, ssv_filter)
 from gecco_tpu_torch.hmm.pipeline import SearchPipeline
 
 from test_torch_pipeline import _port, multidomain_inputs
@@ -84,6 +88,89 @@ def test_msv_empty_sequence_scores_neg(workload):
     scores = msv_filter(SeqPack([seqs[0], numpy.zeros(0, dtype=numpy.int32)], "cpu"), bank)
     assert (scores[1] == numpy.float32(NEG)).all()
     assert (scores[0] > -1e29).all()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_msv_j_state_equals_c_state(seed):
+    """J and C of the plain recurrence, both kept, are equal bit for bit
+    after every sequence (they run one recurrence from one start), so the
+    kernel's score J + move is the plain score C + move bit for bit; both
+    stay within the JAX XLA engine's tolerance.  Random profiles of 20 to
+    300 nodes (width classes 128 and 256) and random sequences of 0 to 90
+    residues."""
+    rng = numpy.random.default_rng(seed)
+    profiles = synthetic_profiles(4, min_length=20, max_length=300, seed=30 + seed)
+    seqs = [rng.integers(0, 21, int(n)).astype(numpy.int32) for n in rng.integers(0, 90, 7)]
+    seqs.append(numpy.zeros(0, dtype=numpy.int32))
+    pack, bank = SeqPack(seqs, "cpu"), TorchBank.build(_port(profiles), "cpu")
+    want = msv_filter_plain(pack, bank)
+    seen = 0
+    for prof, J, C in msv_states_plain(pack, bank):
+        assert torch.equal(J, C)
+        live = pack.lens > 0
+        assert torch.equal((J + pack.moves_log[:, None])[live], want[live][:, prof])
+        seen += len(prof)
+    assert seen == bank.P
+    theirs = numpy.asarray(batch.msv_scores(batch.ProfileBank.build(profiles), seqs))
+    live = pack.lens_host > 0
+    numpy.testing.assert_allclose(want.numpy()[live], theirs[live], atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_msv_sequence_order_scores_land_in_place(seed):
+    """Kernel I's order of sequences (``SeqPack.by_length``) is a
+    permutation, longest first with ties in index order; scoring the
+    sequences in that order, or in any other, tile by tile of each class's
+    ``msv_tile``, and writing each score to its sequence's row gives the
+    scores of the pack in its own order."""
+    rng = numpy.random.default_rng(seed)
+    profiles = synthetic_profiles(3, min_length=20, max_length=140, seed=40 + seed)
+    tile = msv_tile(128)
+    lengths = rng.integers(0, 60, tile + 3)
+    lengths[[4, 9]] = lengths[3]                          # ties
+    seqs = [rng.integers(0, 21, int(n)).astype(numpy.int32) for n in lengths]
+    pack, bank = SeqPack(seqs, "cpu"), TorchBank.build(_port(profiles), "cpu")
+    order = pack.by_length()
+    assert order.dtype == torch.int32
+    order = order.numpy()
+    assert sorted(order.tolist()) == list(range(len(seqs)))
+    by_len = lengths[order]
+    assert (numpy.diff(by_len) <= 0).all()
+    for a, b in zip(order[:-1], order[1:]):
+        if lengths[a] == lengths[b]:
+            assert a < b
+    want = msv_filter(pack, bank)
+    for perm in (order, rng.permutation(len(seqs))):
+        for width, idx in bank.classes:
+            part = dataclasses.replace(bank, classes=[(width, idx)])
+            out = torch.full_like(want, NEG)
+            for t0 in range(0, len(seqs), msv_tile(width)):
+                rows = perm[t0:t0 + msv_tile(width)]
+                out[torch.as_tensor(rows)] = msv_filter(
+                    SeqPack([seqs[r] for r in rows], "cpu"), part)
+            cols = idx.long()
+            assert torch.equal(out[:, cols], want[:, cols])
+
+
+def test_msv_tiles_and_nodes_per_class():
+    """Each class's tile holds a take of every warp of a block (8 warps of
+    32 / G sequences), and the DP row kernel I computes for a profile is
+    whole groups of the class's G lanes, never past the class, the
+    class's width at 2,048 nodes."""
+    assert all(32 % g == 0 for g in MSV_LANES.values())
+    for width in (128, 256, 512, 1024, 2048):
+        g = MSV_LANES.get(width, 32)
+        assert msv_tile(width) % (8 * 32 // g) == 0 and msv_tile(width) >= 32
+    lengths = [1, 3, 4, 5, 31, 32, 33, 128, 129, 136, 300, 513, 1024, 1025, 2100]
+    profiles = [gm for seed, m in enumerate(lengths)
+                for gm in synthetic_profiles(1, min_length=m, max_length=m, seed=seed)]
+    bank = TorchBank.build(_port(profiles), "cpu")
+    for m, n, width in zip(lengths, msv_nodes(bank).tolist(), bank.class_of.tolist()):
+        g = MSV_LANES.get(width, 32)
+        if width == 2048:
+            assert n == 2048
+        else:
+            assert n % g == 0 and m <= n < m + g and n <= width
 
 
 @pytest.mark.parametrize("bias", [True, False], ids=["bias", "nobias"])
