@@ -10,7 +10,8 @@ Phases (each prints its wall seconds, each ends in a device sync):
 1. device: require CUDA, print the card's name and power limit, build
    the kernels from ``gecco_tpu_torch/csrc`` (printing the build's
    seconds), print the registers and spills (``nvcc -Xptxas -v``) of
-   every instantiation of kernels A, B, C, H (both semirings), I and K;
+   every instantiation of kernels A, B, C, D, F, H (both semirings), I
+   and K;
 2. kernels: each CUDA kernel against its plain PyTorch version on the
    card, at the main path's shapes (2,766 Pfam-shaped profiles plus one
    of 2,100 nodes), with a stated tolerance, timed beside it (A, C, H
@@ -37,22 +38,26 @@ Phases (each prints its wall seconds, each ends in a device sync):
    512 residues with planted domains, 2,766 profiles calibrated by the
    port's own ``calibrate``), launch counts of every kernel, the
    survivor funnel, the pairs whose domains the host engine defined,
-   peak device memory, the device ms of kernels A, B and C per width
-   class (each launched once a class), kernel C alone on the search's F3
-   pairs and on ``calibrate``'s 708,096 pairs, per width class between
-   CUDA events (beside calibrate's wall), and the same search on plain
-   PyTorch for the first proteins as a reference;
+   peak device memory, the device ms of kernels A, B, C, D and F per
+   width class (A-C launched once a class, D and F once a class and
+   launch group), kernel C alone on the search's F3 pairs and on
+   ``calibrate``'s 708,096 pairs, per width class between CUDA events
+   (beside calibrate's wall), kernels D and F alone over the rows the
+   search gave them, per width class between CUDA events, and the same
+   search on plain PyTorch for the first proteins as a reference;
 4. max-filter search: ``SearchPipeline(max_filter=True,
    backend="cuda").search`` (hmmsearch ``--max``) over the same
    workload, every pair Forward-scored by kernel H (one launch a width
    class): its funnel, launch counts, the candidates that reach domain
    definition (210,321, and 186,503 reported, as recorded), H's
-   device ms, cells and rates per width class, peak device memory, its
-   hits against the default search's (a superset) and against the same
-   search on plain PyTorch for the first proteins; then H alone over the
-   whole pack in both semirings, per width class between CUDA events,
-   with rows of its first, middle and last tiles (the ragged last tile
-   whole) held against the plain version;
+   device ms, cells and rates per width class, D's and F's device ms per
+   width class, peak device memory, its hits against the default
+   search's (a superset) and against the same search on plain PyTorch
+   for the first proteins; then H alone over the whole pack in both
+   semirings, per width class between CUDA events, with rows of its
+   first, middle and last tiles (the ragged last tile whole) held
+   against the plain version, and D and F alone over the search's rows
+   per width class between CUDA events;
 5. MSV search: ``SearchPipeline(filter_stage="msv", backend="cuda")``
    (HMMER 3.0's multi-segment filter, kernel I, in place of kernel A)
    over the same workload: its funnel (F1 at least the default's, since
@@ -302,6 +307,9 @@ WIDTH_OF = {"ssv_kernel": lambda c: 32 * c, "ssv_kernel_wide": lambda c: 32 * c,
             "msv_kernel_wide": lambda c: 32 * c, "forward_kernel": lambda c: 32 * c,
             "forward_kernel_wide": lambda t, c: t * c,
             "pair_align_kernel": lambda t, c: t * c,
+            "posterior_fwd_kernel": lambda c: 32 * c,
+            "posterior_fwd_kernel_wide": lambda t, c: t * c,
+            "align_bwd_kernel": lambda c: 32 * c, "align_bwd_kernel_wide": lambda t, c: t * c,
             "dense_kernel": lambda c, v: 32 * c, "dense_kernel_wide": lambda t, c, v: t * c}
 #: phase 1's ``-Xptxas -v`` reports: source, ``__global__`` name, instantiations
 REGISTER_REPORTS = (("ssv.cu", "ssv_kernel", 5), ("ssv.cu", "ssv_kernel_wide", 1),
@@ -309,6 +317,10 @@ REGISTER_REPORTS = (("ssv.cu", "ssv_kernel", 5), ("ssv.cu", "ssv_kernel_wide", 1
                     ("viterbi.cu", "viterbi_kernel_wide", 2),
                     ("msv.cu", "msv_kernel", 5), ("msv.cu", "msv_kernel_wide", 1),
                     ("forward.cu", "forward_kernel", 4), ("forward.cu", "forward_kernel_wide", 2),
+                    ("stream_fwd.cu", "posterior_fwd_kernel", 4),
+                    ("stream_fwd.cu", "posterior_fwd_kernel_wide", 2),
+                    ("align_bwd.cu", "align_bwd_kernel", 4),
+                    ("align_bwd.cu", "align_bwd_kernel_wide", 2),
                     ("pair_align.cu", "pair_align_kernel", 6),
                     ("dense.cu", "dense_kernel", 8), ("dense.cu", "dense_kernel_wide", 4))
 #: the ``__global__`` functions of each kernel timed by width class
@@ -316,7 +328,9 @@ CLASS_KERNELS = {"ssv_filter": ("ssv_kernel", "ssv_kernel_wide"),
                  "viterbi_pairs": ("viterbi_kernel", "viterbi_kernel_wide"),
                  "msv_filter": ("msv_kernel", "msv_kernel_wide"),
                  "forward_pairs": ("forward_kernel", "forward_kernel_wide"),
-                 "dense_scores": ("dense_kernel", "dense_kernel_wide")}
+                 "dense_scores": ("dense_kernel", "dense_kernel_wide"),
+                 "posterior_fwd": ("posterior_fwd_kernel", "posterior_fwd_kernel_wide"),
+                 "align_bwd": ("align_bwd_kernel", "align_bwd_kernel_wide")}
 
 
 def ptxas_usage(text, name):
@@ -336,7 +350,7 @@ def ptxas_usage(text, name):
 
 def phase_registers():
     """``-Xptxas -v`` registers and spills of every instantiation of kernels
-    A, B, H and K, one ``nvcc`` a source, side by side."""
+    A, B, C, D, F, H, I and K, one ``nvcc`` a source, side by side."""
     from concurrent.futures import ThreadPoolExecutor
 
     from gecco_tpu_torch import _build
@@ -787,6 +801,57 @@ def profiled_search(pipeline, seqs, device, path):
     return hits, launches, classes
 
 
+@contextlib.contextmanager
+def recorded_domain_rows():
+    """Record the rows of each launch group of kernels D and F that
+    ``StreamDomains.define`` makes inside the block: yields ``{"posterior_fwd":
+    [(s_idx, p_idx), ...], "align_bwd": [...]}``, host arrays, one entry per
+    call of the posterior and alignment stages."""
+    from gecco_tpu_torch.hmm import stream
+
+    rows = {"posterior_fwd": [], "align_bwd": []}
+    posteriors, align = stream.StreamDomains._posteriors, stream.StreamDomains._align
+
+    def record_posteriors(self, pack, s_idx, p_idx):
+        rows["posterior_fwd"].append((numpy.asarray(s_idx), numpy.asarray(p_idx)))
+        return posteriors(self, pack, s_idx, p_idx)
+
+    def record_align(self, pack, s_idx, p_idx, *args):
+        rows["align_bwd"].append((numpy.asarray(s_idx), numpy.asarray(p_idx)))
+        return align(self, pack, s_idx, p_idx, *args)
+
+    stream.StreamDomains._posteriors, stream.StreamDomains._align = record_posteriors, record_align
+    try:
+        yield rows
+    finally:
+        stream.StreamDomains._posteriors, stream.StreamDomains._align = posteriors, align
+
+
+def domain_kernels_alone(pack, bank, recorded, label, repeats):
+    """Kernels D and F alone over the rows a search gave them (recorded by
+    :func:`recorded_domain_rows`): each launch group's launches, prepared
+    beforehand (``posterior_fwd_launches``, ``align_bwd_launches``), timed
+    alone between CUDA events (mean of ``repeats`` after a warm-up) and
+    summed per width class."""
+    from gecco_tpu_torch.hmm import stream
+
+    for name, prepare in (("posterior_fwd", stream.posterior_fwd_launches),
+                          ("align_bwd", stream.align_bwd_launches)):
+        per_class = {}
+        for s_idx, p_idx in recorded[name]:
+            launches, out = prepare(pack, bank, s_idx, p_idx)
+            for width, launch in launches.items():
+                per_class[width] = per_class.get(width, 0.0) + timed_ms(launch, repeats)[1]
+            del launches, out
+        rows = {w: int(sum((bank.class_of[p] == w).sum() for _s, p in recorded[name]))
+                for w in per_class}
+        print(f"# kernel {name} alone over the {label}'s rows ({len(recorded[name])} launch "
+              f"groups; each launch prepared, then timed between CUDA events, ms per width "
+              f"class): {json.dumps(dict(sorted(per_class.items())))}, total "
+              f"{sum(per_class.values())!r} ms; rows per class "
+              f"{json.dumps(dict(sorted(rows.items())))}", flush=True)
+
+
 def compare_with_plain(pipeline, profiles, head, device, **options):
     """The same search of the first proteins on the plain PyTorch versions:
     the same funnel, hits and domain coordinates, scores within 5e-3 bits."""
@@ -814,6 +879,7 @@ def compare_with_plain(pipeline, profiles, head, device, **options):
 
 def phase_search(device, state):
     from gecco_tpu_torch.hmm.calibrate import calibrate
+    from gecco_tpu_torch.hmm.kernels import SeqPack
     from gecco_tpu_torch.hmm.pipeline import SearchPipeline
     from gecco_tpu_torch.hmm.synthetic import bench_workload
     from gecco_tpu_torch.orf import _native
@@ -832,7 +898,8 @@ def phase_search(device, state):
 
     pipeline = SearchPipeline(profiles, device=device, Z=N_PROFILES, domZ=N_PROFILES,
                               backend="cuda")
-    hits, launches, _classes = profiled_search(pipeline, seqs, device, DEFAULT_PATH)
+    with recorded_domain_rows() as domain_rows:
+        hits, launches, _classes = profiled_search(pipeline, seqs, device, DEFAULT_PATH)
     candidates = list(pipeline.candidate_pairs)   # before the next search replaces them
     for name in ("ssv_filter", "viterbi_pairs"):
         require(launches[name] == len(pipeline.bank.classes),
@@ -841,6 +908,7 @@ def phase_search(device, state):
         require(pipeline.stage_counts.get(stage) == count,
                 f"funnel at {stage}: {pipeline.stage_counts.get(stage)} != {count}")
     forward_on_search(pipeline, seqs, device, calibrate_s)
+    domain_kernels_alone(SeqPack(seqs, device), pipeline.bank, domain_rows, "default search", 5)
     compare_with_plain(pipeline, profiles, seqs[:HEAD], device)
     state.update(genome=genome, profiles=profiles, seqs=seqs, launches=launches,
                  hits={(h.sequence_index, h.profile.name) for h in hits},
@@ -889,7 +957,8 @@ def phase_max_filter(device, state):
     profiles, seqs = state["profiles"], state["seqs"]
     pipeline = SearchPipeline(profiles, device=device, Z=N_PROFILES, domZ=N_PROFILES,
                               max_filter=True, backend="cuda")
-    hits, launches, classes = profiled_search(pipeline, seqs, device, MAX_FILTER_PATH)
+    with recorded_domain_rows() as domain_rows:
+        hits, launches, classes = profiled_search(pipeline, seqs, device, MAX_FILTER_PATH)
     require(launches["dense_scores"] == len(pipeline.bank.classes),
             f"dense_scores made {launches['dense_scores']} launches, not one per width class")
     pairs = FUNNEL["pairs"]
@@ -917,6 +986,7 @@ def phase_max_filter(device, state):
     print(f"# kernel dense_scores on the search: {json.dumps(bound(*work))} "
           f"({work[0]!r} flops, {work[1]!r} bytes)", flush=True)
     check_dense_whole_pack(pack, pipeline.bank)
+    domain_kernels_alone(pack, pipeline.bank, domain_rows, "max_filter search", 1)
     compare_with_plain(pipeline, profiles, seqs[:HEAD], device, max_filter=True)
     state.update(max_launches=launches)
 

@@ -21,6 +21,14 @@
 // need bE: V's scan and bB's sum share one barrier.  Two barriers per
 // residue: one hands each thread's first e*bM to its left neighbour, one
 // publishes the warp totals of V's affine scan and of bB.
+//
+// warp_backward_step is the same step for one warp that holds a whole row
+// (lane l holding nodes [l*C, (l+1)*C)): one shuffle hands lane l+1's first
+// e*bM to lane l, bB is one warp sum, and V's offsets take a five-step
+// shuffle scan from the right whose slopes (products of tdd, fixed by the
+// profile) ChainScan holds, as chain_scan_right builds them: the mirror of
+// warp_forward_step.  U is computed once per profile.  No barrier.
+// Kernel F (up to 1,024 nodes) uses it.
 #pragma once
 
 #include "forward_step.cuh"
@@ -198,6 +206,151 @@ struct Backward {
         return bB * inv;
     }
 };
+
+// ChainScan's mirror for chains that run from the right: a[k] is this
+// lane's slope before step k of a scan that composes a lane's maps v ->
+// tdd v + b with those of the lanes after it, or 0 where lane + 2^k does
+// not exist.  Every lane of the warp builds it together, once per profile.
+template <int C, typename Trans>
+__device__ __forceinline__ ChainScan chain_scan_right(const Trans& tr) {
+    const int lane = threadIdx.x & 31;
+    float ca = 1.0f;
+#pragma unroll
+    for (int j = 0; j < C; ++j) ca = tr(T_DD, j) * ca;
+    ChainScan chain;
+#pragma unroll
+    for (int k = 0; k < 5; ++k) {
+        const int o = 1 << k;
+        const float ya = __shfl_down_sync(0xffffffffu, ca, o);
+        chain.a[k] = lane + o < 32 ? ca : 0.0f;
+        if (lane + o < 32) ca = ca * ya;
+    }
+    return chain;
+}
+
+// The value entering this lane's last node from the right (0 at lane 31),
+// given `cb`, the offset of this lane's maps composed: the offsets of the
+// lanes after it composed by a five-step shuffle scan.
+__device__ __forceinline__ float warp_chain_right(float cb, const ChainScan& chain) {
+#pragma unroll
+    for (int k = 0; k < 5; ++k) cb = chain.a[k] * __shfl_down_sync(0xffffffffu, cb, 1 << k) + cb;
+    const float v = __shfl_down_sync(0xffffffffu, cb, 1);
+    return (threadIdx.x & 31) == 31 ? 0.0f : v;
+}
+
+// A lane's values of N rows of a lane-interleaved table (row s, node l*C + j
+// at (s*C + j)*32 + l; `p` at lane l): registers where REG, else reads of
+// the shared table.
+template <int C, int N, bool REG>
+struct LaneRows {
+    float t[N][C];
+    __device__ __forceinline__ explicit LaneRows(const float* p) {
+#pragma unroll
+        for (int s = 0; s < N; ++s)
+#pragma unroll
+            for (int j = 0; j < C; ++j) t[s][j] = p[(s * C + j) * 32];
+    }
+    __device__ __forceinline__ float operator()(int s, int j) const { return t[s][j]; }
+};
+
+template <int C, int N>
+struct LaneRows<C, N, false> {
+    const float* p;
+    __device__ __forceinline__ explicit LaneRows(const float* q) : p(q) {}
+    __device__ __forceinline__ float operator()(int s, int j) const {
+        return p[(s * C + j) * 32];
+    }
+};
+
+// U_k = nm_k + tdd_k U_{k+1} (U_{32c} = 0) of a lane-interleaved table of
+// c nodes a lane (transitions at `tsm`, nm at `nm`), written as U_{k+1} at
+// node k of `u`: by one warp, every lane together; c is a run-time count.
+__device__ __forceinline__ void warp_delete_basis(const float* tsm, const float* nm, float* u,
+                                                  int c) {
+    const int lane = threadIdx.x & 31;
+    const float* tdd = tsm + T_DD * 32 * c;
+    float ca = 1.0f, cb = 0.0f;
+    for (int j = c - 1; j >= 0; --j) {
+        cb = nm[j * 32 + lane] + tdd[j * 32 + lane] * cb;
+        ca = tdd[j * 32 + lane] * ca;
+    }
+    float ia, ib, ea, eb;
+    warp_scan_right(ca, cb, ia, ib, ea, eb);
+    float v = eb;  // U at node (lane + 1) * c
+    for (int j = c - 1; j >= 0; --j) {
+        u[j * 32 + lane] = v;
+        v = nm[j * 32 + lane] + tdd[j * 32 + lane] * v;
+    }
+}
+
+// The initial Backward row of a warp (o = L-1): bM = nm bE0 + tmd bE0
+// U_{k+1}, bE0 = move / 2, bI = 0; `nu(0, j)` is nm and `nu(1, j)` U_{k+1}.
+template <int C, typename Trans, typename Nodes>
+__device__ __forceinline__ void warp_backward_init(float (&bM)[C], float (&bI)[C], const Trans& tr,
+                                                   const Nodes& nu, float move) {
+    const float bE0 = move * 0.5f;
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+        bM[j] = nu(0, j) * bE0 + tr(T_MD, j) * (bE0 * nu(1, j));
+        bI[j] = 0.0f;
+    }
+}
+
+// One Backward step of a warp over a whole row, to residue o from the
+// carries of o+1: `e` the emission odds of residue o+1 at this lane's
+// nodes, `tr` their transitions (both zero past the model length), `nu`
+// nm and U_{k+1}, `right` chain_scan_right's slopes.  Leaves the rescaled
+// states of o in the carries, adds log(scale) to ls and returns the
+// rescaled bB of o.
+template <int C, typename Trans, typename Nodes>
+__device__ __forceinline__ float warp_backward_step(float (&bM)[C], float (&bI)[C], float& bN,
+                                                    float& bJ, float& bC, float& ls,
+                                                    const float (&e)[C], const Trans& tr,
+                                                    const Nodes& nu, const ChainScan& right,
+                                                    float loop, float move) {
+    float t[C];
+    float bb = 0.0f;
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+        t[j] = e[j] * bM[j];
+        bb += tr(T_BM, j) * t[j];
+    }
+    float next = __shfl_down_sync(0xffffffffu, t[0], 1);
+    if ((threadIdx.x & 31) == 31) next = 0.0f;
+    // V_k = tdm_k q_k + tdd_k V_{k+1}: this lane's maps composed, then
+    // the value entering the lane from the right
+    float cb = 0.0f;
+#pragma unroll
+    for (int j = C - 1; j >= 0; --j) {
+        const float q = j + 1 < C ? t[j + 1] : next;
+        cb = tr(T_DM, j) * q + tr(T_DD, j) * cb;
+    }
+    float v = warp_chain_right(cb, right);
+    const float bB = warp_sum(bb);
+
+    const float bJn = loop * bJ + move * bB;
+    const float bCn = loop * bC;
+    const float bNn = loop * bN + move * bB;
+    const float bEn = 0.5f * bJn + 0.5f * bCn;
+    const float scale = bNn + bJn + bCn + bB + 1e-30f;
+    const float inv = 1.0f / scale;
+#pragma unroll
+    for (int j = C - 1; j >= 0; --j) {
+        const float q = j + 1 < C ? t[j + 1] : next;
+        const float d_next = bEn * nu(1, j) + v;  // bD_{k+1}
+        const float bIn = tr(T_IM, j) * q + tr(T_II, j) * bI[j];
+        const float bMn = nu(0, j) * bEn + tr(T_MM, j) * q + tr(T_MI, j) * bI[j] +
+                          tr(T_MD, j) * d_next;
+        v = tr(T_DM, j) * q + tr(T_DD, j) * v;
+        bM[j] = bMn * inv;
+        bI[j] = bIn * inv;
+    }
+    bN = bNn * inv;
+    bJ = bJn * inv;
+    bC = bCn * inv;
+    ls += logf(scale);
+    return bB * inv;
+}
 
 // The Forward trajectories of one row, one value a residue: the rescaled
 // N, B, J, C, E after each residue and the running log scale.  Kernel E

@@ -72,6 +72,37 @@ struct ResidueStream {
     }
 };
 
+// The same read backwards: residues L-1, L-2, ..., 0 (the Backward
+// passes).  Call next() at most L times.
+struct ResidueStreamRev {
+    const uint32_t* word;   // the word holding the next residue
+    const uint32_t* first;  // the word holding residue 0
+    uint32_t cur, nxt;
+    int shift;
+
+    __device__ __forceinline__ ResidueStreamRev(const int8_t* x, int L) {
+        const uintptr_t a = reinterpret_cast<uintptr_t>(x);
+        const uintptr_t top = a + (L > 0 ? L - 1 : 0);
+        first = reinterpret_cast<const uint32_t*>(a & ~uintptr_t(3));
+        word = reinterpret_cast<const uint32_t*>(top & ~uintptr_t(3));
+        shift = static_cast<int>(top & 3) * 8;
+        cur = L > 0 ? __ldg(word) : 0u;
+        nxt = L > 0 && word > first ? __ldg(word - 1) : 0u;
+    }
+
+    __device__ __forceinline__ int next() {
+        const int r = static_cast<int>((cur >> shift) & 0xffu);
+        shift -= 8;
+        if (shift < 0) {
+            shift = 24;
+            cur = nxt;
+            --word;
+            nxt = word > first ? __ldg(word - 1) : 0u;
+        }
+        return r;
+    }
+};
+
 // The rows of a domain-definition launch (kernels D-G): row r scores
 // sequence seq[r] against profile prof[r].  Per-row outputs are padded to
 // `stride` residues.  Loops and moves are probabilities.

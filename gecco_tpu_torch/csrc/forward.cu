@@ -178,17 +178,8 @@ forward_kernel(const int8_t* __restrict__ xs, const int64_t* __restrict__ offset
     const int p = pair_prof[first];
     const int M = model_len[p];
     const int c = min(max((M + 31) / 32, CMIN), CMAX);
-    const int W = 32 * c;
-    const size_t plane = static_cast<size_t>(P) * Mp;
-    const size_t prow = static_cast<size_t>(p) * Mp;
-
-    for (int idx = threadIdx.x; idx < (N_TRANS + K_ALPHA) * W; idx += 32 * WARPS) {
-        const int slot = idx / W;
-        const int k = idx - slot * W;
-        const int owner = k / c;
-        const float* src = slot < N_TRANS ? trans + slot * plane : e_odds + (slot - N_TRANS) * plane;
-        smem[slot * W + (k - owner * c) * 32 + owner] = k < M ? src[prow + k] : 0.0f;
-    }
+    stage_interleaved(smem, trans, e_odds, static_cast<size_t>(P) * Mp,
+                      static_cast<size_t>(p) * Mp, M, c, 32 * WARPS);
     if (threadIdx.x == 0) next_row = WARPS;
     __syncthreads();
 

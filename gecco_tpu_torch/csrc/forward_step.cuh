@@ -172,6 +172,27 @@ __device__ __forceinline__ float forward_step(float (&Mv)[CHUNK], float (&Iv)[CH
     return forward_step<THREADS, CHUNK>(Mv, Iv, Dv, N, B, J, C, e, tsm, M, loop, move, sh, unused);
 }
 
+// Copy a profile's 8 transition rows and then its 21 emission-odds rows
+// (bank planes of `plane` floats, the profile's row at `prow`) into
+// dst[N_TRANS + K_ALPHA][32 * c], lane-interleaved for a warp whose lane l
+// holds nodes [l*c, (l+1)*c): node l*c + j at j*32 + l, so that a warp's
+// reads of one row fall in 32 banks; zero past the model length M.  Every
+// thread of the block (`threads` of them) takes part; no barrier.  Kernels
+// C, D, F and H stage their profile so.
+__device__ __forceinline__ void stage_interleaved(float* dst, const float* trans,
+                                                  const float* e_odds, size_t plane, size_t prow,
+                                                  int M, int c, int threads) {
+    const int W = 32 * c;
+    for (int idx = threadIdx.x; idx < (N_TRANS + K_ALPHA) * W; idx += threads) {
+        const int slot = idx / W;
+        const int k = idx - slot * W;
+        const int owner = k / c;
+        const float* src = slot < N_TRANS ? trans + slot * plane
+                                         : e_odds + (slot - N_TRANS) * plane;
+        dst[slot * W + (k - owner * c) * 32 + owner] = k < M ? src[prow + k] : 0.0f;
+    }
+}
+
 // A lane's transitions of its C nodes, tr(slot, j): held in registers
 // (RegTrans) or read from a lane-interleaved [N_TRANS][32 * C] table in
 // shared memory, node l*C + j at j*32 + l (SmemTrans, `p` at lane l).

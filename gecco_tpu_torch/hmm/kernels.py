@@ -440,8 +440,9 @@ def pair_blocks(class_of, prof, rows_per_block: int):
     rows by width class, then profile, stably (a radix sort for banks of
     up to 65,536 profiles), and ``blocks`` (``[n_blocks, 2]`` int32) gives
     each block's first row in that order and its row count, at most
-    ``rows_per_block`` rows of one profile.  ``out[order] = scores``
-    restores the input order.
+    ``rows_per_block`` rows of one profile (an int, or a dict giving each
+    width class its own).  ``out[order] = scores`` restores the input
+    order.
     """
     class_of = numpy.asarray(class_of)
     rank = numpy.empty(len(class_of), dtype=numpy.int64)
@@ -452,11 +453,18 @@ def pair_blocks(class_of, prof, rows_per_block: int):
     k = key[order]
     run_first = numpy.flatnonzero(numpy.concatenate(([True], k[1:] != k[:-1])))
     run_end = numpy.concatenate((run_first[1:], [len(k)]))
-    per_run = -(-(run_end - run_first) // rows_per_block)
+    if isinstance(rows_per_block, dict):   # each run's cap, from its profile's class
+        widths = numpy.array(sorted(rows_per_block))
+        caps = numpy.array([rows_per_block[w] for w in widths], dtype=numpy.int64)
+        run_class = class_of[numpy.asarray(prof, dtype=numpy.int64)[order[run_first]]]
+        cap = caps[numpy.searchsorted(widths, run_class)]
+    else:
+        cap = numpy.full(len(run_first), rows_per_block, dtype=numpy.int64)
+    per_run = -(-(run_end - run_first) // cap)
     run = numpy.repeat(numpy.arange(len(run_first)), per_run)
     within = numpy.arange(len(run)) - numpy.repeat(numpy.cumsum(per_run) - per_run, per_run)
-    first = run_first[run] + rows_per_block * within
-    count = numpy.minimum(rows_per_block, run_end[run] - first)
+    first = run_first[run] + cap[run] * within
+    count = numpy.minimum(cap[run], run_end[run] - first)
     return order, numpy.stack([first, count], 1).astype(numpy.int32)
 
 

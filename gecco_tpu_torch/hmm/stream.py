@@ -19,15 +19,18 @@ Counterpart of ``gecco_tpu.hmm.stream``:
   candidate pairs through D–G, assembled into ``DomainHit`` on the host.
 
 The JAX package pre-gathers each pair's emission stream into a padded
-``[cells, Lps, C, Mp]`` tensor; the kernels here read emission rows by
-residue index from the bank tensor, one block per row.  Per-row outputs
-are padded per launch to its longest row (``stride``) and are zero past
-each row's length.  A launch takes rows of any width class; it runs at
-the widest class among them (``StreamDomains`` launches one class at a
-time).  Each kernel wrapper takes the plain version for CPU tensors and
-launches its kernel (``csrc/``) or raises for CUDA tensors.
+``[cells, Lps, C, Mp]`` tensor; the kernels here read emissions by
+residue index from the bank tensor.  Per-row outputs are padded per call
+to its longest row (``stride``) and are zero past each row's length.  A
+call takes rows of any width class: kernels E and G run one launch at the
+widest class among them; kernels D and F one launch per class up to
+1,024 nodes (a warp a row, blocks of one profile's rows) and one for the
+rows above, each row written in place (``StreamDomains`` calls one class
+at a time).  Each kernel wrapper takes the plain version for CPU tensors
+and launches its kernel (``csrc/``) or raises for CUDA tensors.
 """
 
+import functools
 import math
 from typing import Dict, List, Sequence, Tuple
 
@@ -38,15 +41,16 @@ from . import engine
 from .bank import NEG, TorchBank
 from .engine import DomainHit, exp_surv
 from .kernels import (
-    SeqPack, _check, _forward_step, _kernel_device, _shift_right, check_ranges, launch_rows,
-    pair_groups, pair_launches, run_launches, window_rows,
+    DENSE_WARP_WIDTH, SeqPack, _check, _forward_step, _kernel_device, _shift_right, check_ranges,
+    launch_rows, pair_blocks, pair_groups, pair_launches, run_launches, window_rows,
 )
 from .profile import length_model, null1_score
 
 __all__ = [
     "forward_pairs", "forward_pairs_plain", "forward_launches",
-    "posterior_fwd", "posterior_fwd_plain", "posterior_bwd", "posterior_bwd_plain",
-    "envelopes", "align_bwd", "align_bwd_plain", "align_fwd", "align_fwd_plain",
+    "posterior_fwd", "posterior_fwd_plain", "posterior_fwd_launches", "posterior_bwd",
+    "posterior_bwd_plain", "envelopes", "align_bwd", "align_bwd_plain", "align_bwd_launches",
+    "align_fwd", "align_fwd_plain",
     "DeviceDomains", "StreamDomains", "assemble_domains",
 ]
 
@@ -61,6 +65,12 @@ _N_ENVS = 4
 #: most rows of one profile that a block of kernel C takes at widths 128
 #: to 1,024 (its warps take them in turn; ``hmm.kernels.pair_blocks``)
 FORWARD_BLOCK_ROWS = 16
+#: most rows of one profile that a block of kernels D and F takes in each
+#: width class, one a warp (``stream_fwd.cu``'s ``D_WARPS``,
+#: ``align_bwd.cu``'s ``F_WARPS``): a launch of few rows a profile then
+#: runs every row side by side.  The classes above 1,024 nodes take a
+#: block a row.
+DOMAIN_BLOCK_ROWS = {128: 4, 256: 4, 512: 8, 1024: 8, 2048: 1, 4096: 1}
 
 
 def forward_pairs(pack: SeqPack, bank: TorchBank, seq_idx, prof_idx,
@@ -155,10 +165,11 @@ def forward_pairs_plain(pack: SeqPack, bank: TorchBank, seq_idx, prof_idx,
 # ---------------------------------------------------------------------------
 
 class _Rows:
-    """The (sequence, profile) rows of one launch of kernels D–G.
+    """The (sequence, profile) rows of one call of kernels D–G.
 
-    ``width`` is the launch's node width, the widest class among the
-    rows; ``stride`` its residue axis, the longest row (at least 1).  The
+    ``width`` is the call's node width, the widest class among the rows
+    (kernels E and G launch at it, F's planes take it); ``stride`` its
+    residue axis, the longest row (at least 1).  The
     plain versions compute over ``min(width, Mp)`` nodes (the bank holds
     no more; nodes past a model's length are zero either way).
     """
@@ -175,13 +186,21 @@ class _Rows:
         if len(prof_idx) and (prof_idx.min() < 0 or prof_idx.max() >= bank.P):
             raise IndexError("row profile index out of range")
         self.pack, self.bank = pack, bank
+        self.seq_host, self.prof_host = seq_idx, prof_idx
         self.n = len(seq_idx)
         self.lens_host = pack.lens_host[seq_idx].astype(numpy.int64)
         self.width = int(bank.class_of[prof_idx].max()) if self.n else 128
         self.stride = max(1, int(self.lens_host.max(initial=0)))
-        device = bank.device
-        self.seq = torch.as_tensor(seq_idx, device=device)
-        self.prof = torch.as_tensor(prof_idx, device=device)
+
+    @functools.cached_property
+    def seq(self) -> torch.Tensor:
+        """The rows' sequence indices on the device (uploaded on first use)."""
+        return torch.as_tensor(self.seq_host, device=self.bank.device)
+
+    @functools.cached_property
+    def prof(self) -> torch.Tensor:
+        """The rows' profile indices on the device (uploaded on first use)."""
+        return torch.as_tensor(self.prof_host, device=self.bank.device)
 
     # -- kernel launch ------------------------------------------------------
 
@@ -190,6 +209,44 @@ class _Rows:
         launch_rows(fn_name, counter, self.pack, self.bank, self.seq.to(torch.int32),
                     self.prof.to(torch.int32), self.width, *tail, log_space=False,
                     stride=self.stride)
+
+    def launches(self, fn_name: str, counter: str, *tail) -> Dict[int, functools.partial]:
+        """Kernel ``fn_name``'s launches over the rows (kernels D and F),
+        prepared on the device and keyed by the width each runs at: one
+        per width class up to ``DENSE_WARP_WIDTH`` nodes, its rows cut into
+        blocks of at most ``DOMAIN_BLOCK_ROWS`` rows of one profile
+        (:func:`~.kernels.pair_blocks`), and one at the launch's width for
+        the rows of the classes above (a block a row).  Each takes the
+        rows in that order, its block table and count, each row's output
+        slot (its index here) and the number of slots, then ``tail``, so
+        that the kernel writes every row in place.  The schedule goes to
+        the device in one copy."""
+        n, bank = self.n, self.bank
+        if n == 0:
+            return {}
+        order, blocks = pair_blocks(bank.class_of, self.prof_host, DOMAIN_BLOCK_ROWS)
+        key = numpy.minimum(bank.class_of[self.prof_host[order]], 2 * DENSE_WARP_WIDTH)
+        bounds = numpy.flatnonzero(numpy.diff(key)) + 1
+        starts, ends = numpy.concatenate(([0], bounds)), numpy.concatenate((bounds, [n]))
+        first = blocks[:, 0].copy()
+        blocks[:, 0] -= starts[numpy.searchsorted(starts, first, side="right") - 1]
+        packed = torch.as_tensor(numpy.concatenate(
+            [self.seq_host[order], self.prof_host[order], order, blocks.ravel()]
+        ).astype(numpy.int32), device=bank.device)
+        seq_t, prof_t, slot_t = packed[:n], packed[n : 2 * n], packed[2 * n : 3 * n]
+        table_t = packed[3 * n :].view(-1, 2)
+        launches = {}
+        for a, b in zip(starts, ends):
+            width, table = int(key[a]), (None, 0)
+            if width <= DENSE_WARP_WIDTH:   # the class's blocks, first rows counted from a
+                lo, hi = numpy.searchsorted(first, [a, b])
+                table = (table_t[lo:hi], int(hi - lo))
+            else:
+                width = self.width
+            launches[width] = functools.partial(
+                launch_rows, fn_name, counter, self.pack, bank, seq_t[a:b], prof_t[a:b], width,
+                *table, slot_t[a:b], self.n, *tail, log_space=False, stride=self.stride)
+        return launches
 
     # -- plain versions -----------------------------------------------------
 
@@ -228,11 +285,17 @@ def posterior_fwd(pack: SeqPack, bank: TorchBank, seq_idx, prof_idx
     """
     if _kernel_device(pack, bank) == "cpu":
         return posterior_fwd_plain(pack, bank, seq_idx, prof_idx)
+    launches, out = posterior_fwd_launches(pack, bank, seq_idx, prof_idx)
+    return run_launches(launches, lambda: out)
+
+
+def posterior_fwd_launches(pack: SeqPack, bank: TorchBank, seq_idx, prof_idx):
+    """Kernel D's launches over these rows (:meth:`_Rows.launches`) and the
+    ``(traj, score)`` they fill once every one has run."""
     rows = _Rows(pack, bank, seq_idx, prof_idx)
     traj = torch.empty((5, rows.n, rows.stride), dtype=torch.float32, device=bank.device)
     score = torch.empty(rows.n, dtype=torch.float32, device=bank.device)
-    rows.launch("gecco_posterior_fwd", "posterior_fwd", traj, score)
-    return traj, score
+    return rows.launches("gecco_posterior_fwd", "posterior_fwd", traj, score), (traj, score)
 
 
 def posterior_fwd_plain(pack: SeqPack, bank: TorchBank, seq_idx, prof_idx
@@ -469,12 +532,19 @@ def align_bwd(pack: SeqPack, bank: TorchBank, seq_idx, prof_idx
     """
     if _kernel_device(pack, bank) == "cpu":
         return align_bwd_plain(pack, bank, seq_idx, prof_idx)
+    launches, out = align_bwd_launches(pack, bank, seq_idx, prof_idx)
+    return run_launches(launches, lambda: out)
+
+
+def align_bwd_launches(pack: SeqPack, bank: TorchBank, seq_idx, prof_idx):
+    """Kernel F's launches over these rows (:meth:`_Rows.launches`; each
+    also takes the planes' width) and the ``(planes, logs)`` they fill
+    once every one has run."""
     rows = _Rows(pack, bank, seq_idx, prof_idx)
     planes = torch.empty((2, rows.n, rows.stride, rows.width), dtype=torch.bfloat16,
                          device=bank.device)
     logs = torch.empty((4, rows.n, rows.stride), dtype=torch.float32, device=bank.device)
-    rows.launch("gecco_align_bwd", "align_bwd", planes, logs)
-    return planes, logs
+    return rows.launches("gecco_align_bwd", "align_bwd", rows.width, planes, logs), (planes, logs)
 
 
 def align_bwd_plain(pack: SeqPack, bank: TorchBank, seq_idx, prof_idx

@@ -26,7 +26,7 @@ from gecco_tpu_torch.hmm.pipeline import SearchPipeline
 from gecco_tpu_torch.hmm.synthetic import (
     consensus_proteins, plant_domain, synthetic_profiles, synthetic_proteins)
 from gecco_tpu_torch.hmm.stream import (
-    FORWARD_BLOCK_ROWS, StreamDomains, align_bwd, align_bwd_plain, align_fwd, align_fwd_plain, envelopes,
+    DOMAIN_BLOCK_ROWS, FORWARD_BLOCK_ROWS, StreamDomains, align_bwd, align_bwd_plain, align_fwd, align_fwd_plain, envelopes,
     forward_pairs, forward_pairs_plain, posterior_bwd, posterior_bwd_plain, posterior_fwd,
     posterior_fwd_plain)
 
@@ -293,6 +293,97 @@ def test_forward_kernel_edges(node_workload, device, windows):
         assert torch.equal(got[full], forward_pairs(pack, bank, s_idx, p_idx)[full])
     else:
         assert (got[torch.as_tensor(lens == 0, device=pack.device)] == NEG).all()
+
+
+@pytest.fixture(scope="module")
+def domain_edge_rows(node_workload, device):
+    """Rows of kernels D and F on the node bank, one group per width class
+    as ``StreamDomains`` makes them: every profile against
+    18 sequences (more rows than a block of ``DOMAIN_BLOCK_ROWS``), the
+    empty one and the 2,000-residue one among them, and a sequence of
+    4,096 residues against the 128- and 4,096-node classes; the rows of a
+    class interleave its profiles."""
+    profiles, seqs, _pack, bank = node_workload
+    rng = numpy.random.default_rng(11)
+    pack = SeqPack(seqs + [rng.integers(0, 20, 4096).astype(numpy.int32)], device)
+    long = pack.S - 1
+    lens = pack.lens_host
+    per = 18
+    picks = [numpy.concatenate([[0, int(numpy.argmax(lens[:long]))],
+                                rng.choice(numpy.arange(1, long), per - 2, replace=False)])
+             for _p in profiles]
+    s_idx = numpy.array([picks[p][i] for i in range(per) for p in range(len(profiles))])
+    p_idx = numpy.array([p for _i in range(per) for p in range(len(profiles))])
+    outer = numpy.flatnonzero(numpy.isin(bank.class_of, (128, 4096)))
+    s_idx = numpy.concatenate([s_idx, numpy.full(len(outer), long)])
+    p_idx = numpy.concatenate([p_idx, outer])
+    assert (numpy.bincount(p_idx) > max(DOMAIN_BLOCK_ROWS.values())).all()
+    width = bank.class_of[p_idx]
+    return pack, bank, [(s_idx[width == w], p_idx[width == w]) for w in sorted(set(width))]
+
+
+def _past_length(pack, s_idx, stride):
+    """``[n, stride]``: residues at or past each row's length."""
+    lens = torch.as_tensor(pack.lens_host[s_idx], device=pack.device)
+    return torch.arange(stride, device=pack.device)[None, :] >= lens[:, None]
+
+
+def test_posterior_fwd_kernel_edges(domain_edge_rows):
+    """Kernel D against its plain version on the node bank's rows (models
+    at 32 k - 1, 32 k and 32 k + 1 nodes, more rows of a profile than a
+    block, interleaved profiles, an empty sequence, 4,096 residues): one
+    launch a class; the trajectories zero past each row's length, the
+    empty sequence scoring -1e30.  The largest differences are printed."""
+    pack, bank, groups = domain_edge_rows
+    errs = [0.0, 0.0]
+    for s_idx, p_idx in groups:
+        before = _build.launches["posterior_fwd"]
+        traj, score = posterior_fwd(pack, bank, s_idx, p_idx)
+        torch.cuda.synchronize()
+        assert _build.launches["posterior_fwd"] == before + 1
+        want_traj, want_score = posterior_fwd_plain(pack, bank, s_idx, p_idx)
+        _close(traj[:4], want_traj[:4], 1e-4)
+        _close(traj[4], want_traj[4], 1e-3)
+        _close(score, want_score, 1e-3)
+        errs[0] = max(errs[0], float((traj[:4] - want_traj[:4]).abs().max()))
+        errs[1] = max(errs[1], float((traj[4] - want_traj[4]).abs().max()),
+                      float((score - want_score).abs().max()))
+        past = _past_length(pack, s_idx, traj.shape[2])
+        assert (traj[:, past] == 0).all()
+        assert (score[torch.as_tensor(pack.lens_host[s_idx] == 0, device=pack.device)]
+                == NEG).all()
+    print(f"kernel D on the node bank ({len(groups)} classes): largest difference "
+          f"{errs[0]!r} (N, B, J, C), {errs[1]!r} nats (log scale, score)")
+
+
+def test_align_bwd_kernel_edges(domain_edge_rows):
+    """Kernel F against its plain version on the rows of
+    ``test_posterior_fwd_kernel_edges``: one launch a class; the planes
+    within one bfloat16 step and exactly zero past each row's length and
+    at nodes [32 ceil(M / 32), width) of every residue, the logs within
+    1e-3 nats and zero past each row's length.  The largest differences
+    are printed."""
+    pack, bank, groups = domain_edge_rows
+    errs = [0.0, 0.0]
+    lengths = bank.lengths.cpu().numpy()
+    for s_idx, p_idx in groups:
+        before = _build.launches["align_bwd"]
+        planes, logs = align_bwd(pack, bank, s_idx, p_idx)
+        torch.cuda.synchronize()
+        assert _build.launches["align_bwd"] == before + 1
+        want_planes, want_logs = align_bwd_plain(pack, bank, s_idx, p_idx)
+        _close(planes, want_planes, 1e-30, rtol=2.0 ** -7)
+        _close(logs, want_logs, 1e-3)
+        diff = (planes.float() - want_planes.float()).abs()
+        errs[0] = max(errs[0], float((diff / want_planes.float().abs().clamp(min=1e-30)).max()))
+        errs[1] = max(errs[1], float((logs - want_logs).abs().max()))
+        past = _past_length(pack, s_idx, planes.shape[2])
+        assert (planes[:, past] == 0).all() and (logs[:, past] == 0).all()
+        computed = torch.as_tensor(32 * -(-lengths[p_idx] // 32), device=pack.device)
+        beyond = torch.arange(planes.shape[3], device=pack.device)[None, :] >= computed[:, None]
+        assert (planes.permute(0, 2, 1, 3)[:, :, beyond] == 0).all()
+    print(f"kernel F on the node bank ({len(groups)} classes): largest relative difference "
+          f"{errs[0]!r} (planes), {errs[1]!r} nats (logs)")
 
 
 @pytest.mark.parametrize("kernel, plain, tol", [

@@ -33,7 +33,8 @@ from gecco_tpu_torch.hmm.bank import TorchBank
 from gecco_tpu_torch.hmm.kernels import SeqPack
 from gecco_tpu_torch.hmm.profile import profiles_from_arrays
 from gecco_tpu_torch.hmm.stream import (
-    StreamDomains, align_bwd, align_fwd, envelopes, posterior_bwd, posterior_fwd)
+    DOMAIN_BLOCK_ROWS, StreamDomains, align_bwd, align_bwd_launches, align_bwd_plain, align_fwd,
+    envelopes, posterior_bwd, posterior_fwd, posterior_fwd_launches, posterior_fwd_plain)
 
 torch.set_num_threads(1)
 
@@ -355,3 +356,107 @@ def test_align_fwd_rejects_envelope_outside_sequence(cell, bounds):
 def test_stream_domains_rejects_unknown_backend():
     with pytest.raises(ValueError):
         StreamDomains(None, [], backend="pallas")
+
+
+@pytest.fixture(scope="module")
+def schedule_rows():
+    """Rows of three width classes (128, 256 and, from a 2,100-node
+    profile, 4,096) in an order that interleaves profiles: the first
+    profiles of 128 and 256 nodes take more rows than a block, and an
+    empty sequence is among them."""
+    from gecco_tpu_torch.hmm.synthetic import synthetic_profiles as port_profiles
+
+    profiles = (port_profiles(2, min_length=40, max_length=100, seed=61)
+                + port_profiles(1, min_length=200, max_length=200, seed=62)
+                + port_profiles(1, min_length=2100, max_length=2100, seed=63))
+    bank = TorchBank.build(profiles, "cpu")
+    assert bank.class_of.tolist() == [128, 128, 256, 4096]
+    rng = numpy.random.default_rng(9)
+    seqs = [rng.integers(0, 20, n).astype(numpy.int32) for n in (0, 1, 33, 47, 60, 81, 90)]
+    pack = SeqPack(seqs, "cpu")
+    n = 6 * DOMAIN_BLOCK_ROWS[128] + 5
+    p_idx = numpy.array([0, 1, 0, 2, 0, 3] * n)[:n]
+    assert min(numpy.bincount(p_idx)[:3]) > max(DOMAIN_BLOCK_ROWS[128], DOMAIN_BLOCK_ROWS[256])
+    s_idx = rng.integers(0, len(seqs), n)
+    s_idx[:3] = 0
+    return pack, bank, s_idx, p_idx
+
+
+def _plain_rows(kernel, pack, bank, seq, prof, width):
+    """The plain version over rows, padded to ``width`` nodes (planes)."""
+    if kernel == "posterior_fwd":
+        return posterior_fwd_plain(pack, bank, seq, prof)
+    planes, logs = align_bwd_plain(pack, bank, seq, prof)
+    wide = torch.zeros(planes.shape[:3] + (width,), dtype=planes.dtype)
+    wide[..., : planes.shape[3]] = planes
+    return wide, logs
+
+
+@pytest.mark.parametrize("kernel", ["posterior_fwd", "align_bwd"])
+def test_domain_launches_schedule(schedule_rows, monkeypatch, kernel):
+    """The host side of kernels D and F: one launch per width class up to
+    1,024 nodes (so one per group of ``StreamDomains``, which are of one
+    class), whose block table covers every row of the class once, each
+    block within one profile and at most ``DOMAIN_BLOCK_ROWS`` rows, and
+    one launch (a block a row) for the classes above; every row goes to
+    its own output slot.  Each launch is stood in for by the plain version
+    over its blocks' rows (the CUDA launch needs a card), written at the
+    slots it is given; the outputs equal the plain version's over all
+    rows, whose profiles interleave."""
+    pack, bank, s_idx, p_idx = schedule_rows
+    prepare = {"posterior_fwd": posterior_fwd_launches, "align_bwd": align_bwd_launches}[kernel]
+    seen = []
+
+    def launch_rows(fn_name, counter, pack_, bank_, seq, prof, width, table, n_blocks, out_row,
+                    n_out, *tail, log_space, stride):
+        assert (fn_name, counter, log_space) == (f"gecco_{kernel}", kernel, False)
+        assert n_out == len(s_idx) and stride == max(1, int(pack.lens_host[s_idx].max()))
+        if kernel == "align_bwd":
+            plane_width, *tail = tail
+            assert plane_width == 4096
+        else:
+            plane_width = 0
+        classes = set(bank_.class_of[prof.numpy()].tolist())
+        if width <= 1024:
+            assert classes == {width} and table.shape == (n_blocks, 2)
+            runs = table.tolist()
+        else:
+            assert table is None and n_blocks == 0 and min(classes) > 1024
+            runs = [(r, 1) for r in range(len(seq))]
+        covered = numpy.zeros(len(seq), dtype=int)
+        for first, count in runs:
+            assert 1 <= count <= DOMAIN_BLOCK_ROWS[width]
+            rows = slice(first, first + count)
+            covered[rows] += 1
+            assert len(set(prof[rows].tolist())) == 1
+            slots = out_row[rows].long()
+            got = _plain_rows(kernel, pack_, bank_, seq[rows].numpy(), prof[rows].numpy(),
+                              plane_width)
+            for out, value in zip(tail, got):
+                if value.dim() == 1:
+                    out[slots] = value
+                else:
+                    out[:, slots] = 0
+                    out[:, slots, : value.shape[2]] = value
+        assert (covered == 1).all()
+        seen.append(width)
+
+    monkeypatch.setattr(stream, "launch_rows", launch_rows)
+    launches, out = prepare(pack, bank, [], [])
+    assert launches == {} and out[0].shape[1] == 0
+    for w in (128, 256, 4096):   # a group of one class, as StreamDomains makes them
+        one = bank.class_of[p_idx] == w
+        launches, _out = prepare(pack, bank, s_idx[one], p_idx[one])
+        assert list(launches) == [w]
+    launches, out = prepare(pack, bank, s_idx, p_idx)
+    assert sorted(launches) == [128, 256, 4096]
+    for launch in launches.values():
+        launch()
+    assert sorted(seen) == [128, 256, 4096]
+    want = _plain_rows(kernel, pack, bank, s_idx, p_idx, 4096)
+    for got, value in zip(out, want):
+        assert got.shape == value.shape
+        if got.dtype == torch.bfloat16:
+            torch.testing.assert_close(got.float(), value.float(), atol=1e-30, rtol=BF16_STEP)
+        else:
+            torch.testing.assert_close(got, value, atol=1e-5, rtol=1e-5)

@@ -168,20 +168,24 @@ def test_viterbi_pairs_wide_profile():
     numpy.testing.assert_allclose(mine, reference[s_arr, p_arr], atol=TOL, rtol=0)
 
 
+@pytest.mark.parametrize("per_class", [False, True], ids=["one cap", "cap per class"])
 @pytest.mark.parametrize("seed", [0, 1, 2])
-def test_pair_blocks_schedule(seed):
-    """Kernel B's block schedule: every row in exactly one block, no block
-    across two profiles or width classes or over its row cap, the classes
-    in order, and the inverse permutation back to input order."""
+def test_pair_blocks_schedule(seed, per_class):
+    """The block schedule of kernels B, C, D and F: every row in exactly
+    one block, no block across two profiles or width classes or over its
+    row cap (one for every class, or each class its own), the classes in
+    order, and the inverse permutation back to input order."""
     rng = numpy.random.default_rng(seed)
     n, P, cap = int(rng.integers(1, 400)), int(rng.integers(1, 30)), int(rng.integers(1, 20))
     class_of = numpy.array([width_class(m) for m in rng.integers(1, 4097, P)])
     prof = rng.integers(0, P, n)
-    order, blocks = pair_blocks(class_of, prof, cap)
+    caps = {w: int(rng.integers(1, 20)) for w in (128, 256, 512, 1024, 2048, 4096)}
+    order, blocks = pair_blocks(class_of, prof, caps if per_class else cap)
+    cap_of = numpy.array([caps[w] if per_class else cap for w in class_of])
     assert blocks.dtype == numpy.int32 and blocks.shape[1] == 2
     assert sorted(order.tolist()) == list(range(n))
     first, count = blocks[:, 0], blocks[:, 1]
-    assert (count >= 1).all() and (count <= cap).all()
+    assert (count >= 1).all() and (count <= cap_of[prof[order[first]]]).all()
     covered = numpy.zeros(n, dtype=int)
     for f, c in blocks:
         rows = order[f : f + c]
