@@ -10,8 +10,8 @@ Phases (each prints its wall seconds, each ends in a device sync):
 1. device: require CUDA, print the card's name and power limit, build
    the kernels from ``gecco_tpu_torch/csrc`` (printing the build's
    seconds), print the registers and spills (``nvcc -Xptxas -v``) of
-   every instantiation of kernels A, B, C, D, F, H (both semirings), I
-   and K;
+   every instantiation of kernels A, B, C, D, E, F, G, H (both
+   semirings), I and K;
 2. kernels: each CUDA kernel against its plain PyTorch version on the
    card, at the main path's shapes (2,766 Pfam-shaped profiles plus one
    of 2,100 nodes), with a stated tolerance, timed beside it (A, C, H
@@ -38,26 +38,27 @@ Phases (each prints its wall seconds, each ends in a device sync):
    512 residues with planted domains, 2,766 profiles calibrated by the
    port's own ``calibrate``), launch counts of every kernel, the
    survivor funnel, the pairs whose domains the host engine defined,
-   peak device memory, the device ms of kernels A, B, C, D and F per
-   width class (A-C launched once a class, D and F once a class and
-   launch group), kernel C alone on the search's F3 pairs and on
-   ``calibrate``'s 708,096 pairs, per width class between CUDA events
-   (beside calibrate's wall), kernels D and F alone over the rows the
-   search gave them, per width class between CUDA events, and the same
-   search on plain PyTorch for the first proteins as a reference;
+   peak device memory, the device ms of kernels A-G per width class
+   (A-C launched once a class, D-G once a class and launch group),
+   kernel C alone on the search's F3 pairs and on ``calibrate``'s
+   708,096 pairs, per width class between CUDA events (beside
+   calibrate's wall), kernels D-G alone over the rows the search gave
+   them (E on D's outputs, G on F's planes and the search's envelopes),
+   per width class between CUDA events, and the same search on plain
+   PyTorch for the first proteins as a reference;
 4. max-filter search: ``SearchPipeline(max_filter=True,
    backend="cuda").search`` (hmmsearch ``--max``) over the same
    workload, every pair Forward-scored by kernel H (one launch a width
    class): its funnel, launch counts, the candidates that reach domain
    definition (210,321, and 186,503 reported, as recorded), H's
-   device ms, cells and rates per width class, D's and F's device ms per
+   device ms, cells and rates per width class, D-G's device ms per
    width class, peak device memory, its hits against the default
    search's (a superset) and against the same search on plain PyTorch
    for the first proteins; then H alone over the whole pack in both
    semirings, per width class between CUDA events, with rows of its
    first, middle and last tiles (the ragged last tile whole) held
-   against the plain version, and D and F alone over the search's rows
-   per width class between CUDA events;
+   against the plain version, and D-G alone over the search's rows per
+   width class between CUDA events;
 5. MSV search: ``SearchPipeline(filter_stage="msv", backend="cuda")``
    (HMMER 3.0's multi-segment filter, kernel I, in place of kernel A)
    over the same workload: its funnel (F1 at least the default's, since
@@ -309,7 +310,10 @@ WIDTH_OF = {"ssv_kernel": lambda c: 32 * c, "ssv_kernel_wide": lambda c: 32 * c,
             "pair_align_kernel": lambda t, c: t * c,
             "posterior_fwd_kernel": lambda c: 32 * c,
             "posterior_fwd_kernel_wide": lambda t, c: t * c,
+            "posterior_bwd_kernel": lambda c: 32 * c,
+            "posterior_bwd_kernel_wide": lambda t, c: t * c,
             "align_bwd_kernel": lambda c: 32 * c, "align_bwd_kernel_wide": lambda t, c: t * c,
+            "align_fwd_kernel": lambda c: 32 * c, "align_fwd_kernel_wide": lambda t, c: t * c,
             "dense_kernel": lambda c, v: 32 * c, "dense_kernel_wide": lambda t, c, v: t * c}
 #: phase 1's ``-Xptxas -v`` reports: source, ``__global__`` name, instantiations
 REGISTER_REPORTS = (("ssv.cu", "ssv_kernel", 5), ("ssv.cu", "ssv_kernel_wide", 1),
@@ -319,8 +323,12 @@ REGISTER_REPORTS = (("ssv.cu", "ssv_kernel", 5), ("ssv.cu", "ssv_kernel_wide", 1
                     ("forward.cu", "forward_kernel", 4), ("forward.cu", "forward_kernel_wide", 2),
                     ("stream_fwd.cu", "posterior_fwd_kernel", 4),
                     ("stream_fwd.cu", "posterior_fwd_kernel_wide", 2),
+                    ("stream_bwd.cu", "posterior_bwd_kernel", 4),
+                    ("stream_bwd.cu", "posterior_bwd_kernel_wide", 2),
                     ("align_bwd.cu", "align_bwd_kernel", 4),
                     ("align_bwd.cu", "align_bwd_kernel_wide", 2),
+                    ("align_fwd.cu", "align_fwd_kernel", 2),
+                    ("align_fwd.cu", "align_fwd_kernel_wide", 4),
                     ("pair_align.cu", "pair_align_kernel", 6),
                     ("dense.cu", "dense_kernel", 8), ("dense.cu", "dense_kernel_wide", 4))
 #: the ``__global__`` functions of each kernel timed by width class
@@ -330,7 +338,9 @@ CLASS_KERNELS = {"ssv_filter": ("ssv_kernel", "ssv_kernel_wide"),
                  "forward_pairs": ("forward_kernel", "forward_kernel_wide"),
                  "dense_scores": ("dense_kernel", "dense_kernel_wide"),
                  "posterior_fwd": ("posterior_fwd_kernel", "posterior_fwd_kernel_wide"),
-                 "align_bwd": ("align_bwd_kernel", "align_bwd_kernel_wide")}
+                 "posterior_bwd": ("posterior_bwd_kernel", "posterior_bwd_kernel_wide"),
+                 "align_bwd": ("align_bwd_kernel", "align_bwd_kernel_wide"),
+                 "align_fwd": ("align_fwd_kernel", "align_fwd_kernel_wide")}
 
 
 def ptxas_usage(text, name):
@@ -350,7 +360,7 @@ def ptxas_usage(text, name):
 
 def phase_registers():
     """``-Xptxas -v`` registers and spills of every instantiation of kernels
-    A, B, C, D, F, H, I and K, one ``nvcc`` a source, side by side."""
+    A-I and K, one ``nvcc`` a source, side by side."""
     from concurrent.futures import ThreadPoolExecutor
 
     from gecco_tpu_torch import _build
@@ -805,8 +815,9 @@ def profiled_search(pipeline, seqs, device, path):
 def recorded_domain_rows():
     """Record the rows of each launch group of kernels D and F that
     ``StreamDomains.define`` makes inside the block: yields ``{"posterior_fwd":
-    [(s_idx, p_idx), ...], "align_bwd": [...]}``, host arrays, one entry per
-    call of the posterior and alignment stages."""
+    [(s_idx, p_idx), ...], "align_bwd": [(s_idx, p_idx, iv, jv, total), ...]}``,
+    host arrays (``total`` the device tensor the stage was given), one entry
+    per call of the posterior and alignment stages."""
     from gecco_tpu_torch.hmm import stream
 
     rows = {"posterior_fwd": [], "align_bwd": []}
@@ -816,9 +827,10 @@ def recorded_domain_rows():
         rows["posterior_fwd"].append((numpy.asarray(s_idx), numpy.asarray(p_idx)))
         return posteriors(self, pack, s_idx, p_idx)
 
-    def record_align(self, pack, s_idx, p_idx, *args):
-        rows["align_bwd"].append((numpy.asarray(s_idx), numpy.asarray(p_idx)))
-        return align(self, pack, s_idx, p_idx, *args)
+    def record_align(self, pack, s_idx, p_idx, iv, jv, total):
+        rows["align_bwd"].append(tuple(numpy.asarray(a) for a in (s_idx, p_idx, iv, jv))
+                                 + (total,))
+        return align(self, pack, s_idx, p_idx, iv, jv, total)
 
     stream.StreamDomains._posteriors, stream.StreamDomains._align = record_posteriors, record_align
     try:
@@ -828,27 +840,41 @@ def recorded_domain_rows():
 
 
 def domain_kernels_alone(pack, bank, recorded, label, repeats):
-    """Kernels D and F alone over the rows a search gave them (recorded by
+    """Kernels D-G alone over the rows a search gave them (recorded by
     :func:`recorded_domain_rows`): each launch group's launches, prepared
-    beforehand (``posterior_fwd_launches``, ``align_bwd_launches``), timed
+    beforehand (``posterior_fwd_launches``, ``posterior_bwd_launches`` on
+    D's outputs for the same rows, ``align_bwd_launches``,
+    ``align_fwd_launches`` on F's planes and the group's envelopes), timed
     alone between CUDA events (mean of ``repeats`` after a warm-up) and
     summed per width class."""
     from gecco_tpu_torch.hmm import stream
 
-    for name, prepare in (("posterior_fwd", stream.posterior_fwd_launches),
-                          ("align_bwd", stream.align_bwd_launches)):
-        per_class = {}
-        for s_idx, p_idx in recorded[name]:
-            launches, out = prepare(pack, bank, s_idx, p_idx)
-            for width, launch in launches.items():
-                per_class[width] = per_class.get(width, 0.0) + timed_ms(launch, repeats)[1]
-            del launches, out
-        rows = {w: int(sum((bank.class_of[p] == w).sum() for _s, p in recorded[name]))
-                for w in per_class}
-        print(f"# kernel {name} alone over the {label}'s rows ({len(recorded[name])} launch "
-              f"groups; each launch prepared, then timed between CUDA events, ms per width "
-              f"class): {json.dumps(dict(sorted(per_class.items())))}, total "
-              f"{sum(per_class.values())!r} ms; rows per class "
+    per_class = {name: {} for name in DOMAIN_PATH}
+
+    def time_launches(name, launches):
+        for width, launch in launches.items():
+            per_class[name][width] = per_class[name].get(width, 0.0) + timed_ms(launch, repeats)[1]
+
+    for s_idx, p_idx in recorded["posterior_fwd"]:
+        launches, fwd = stream.posterior_fwd_launches(pack, bank, s_idx, p_idx)
+        time_launches("posterior_fwd", launches)
+        time_launches("posterior_bwd", stream.posterior_bwd_launches(pack, bank, s_idx, p_idx,
+                                                                     *fwd)[0])
+        del launches, fwd
+    for s_idx, p_idx, iv, jv, total in recorded["align_bwd"]:
+        launches, parked = stream.align_bwd_launches(pack, bank, s_idx, p_idx)
+        time_launches("align_bwd", launches)
+        time_launches("align_fwd", stream.align_fwd_launches(pack, bank, s_idx, p_idx, *parked,
+                                                             iv, jv, total)[0])
+        del launches, parked
+    for name in DOMAIN_PATH:
+        groups = recorded["posterior_fwd" if name.startswith("posterior") else "align_bwd"]
+        rows = {w: int(sum((bank.class_of[g[1]] == w).sum() for g in groups))
+                for w in per_class[name]}
+        print(f"# kernel {name} alone over the {label}'s rows ({len(groups)} launch groups; "
+              f"each launch prepared, then timed between CUDA events, ms per width class): "
+              f"{json.dumps(dict(sorted(per_class[name].items())))}, total "
+              f"{sum(per_class[name].values())!r} ms; rows per class "
               f"{json.dumps(dict(sorted(rows.items())))}", flush=True)
 
 

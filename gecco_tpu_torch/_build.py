@@ -66,11 +66,13 @@ _ROWS = [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I]
 _SIGNATURES.update({
     # blocks, n_blocks (hmm.kernels.pair_blocks), out_row, n_out, traj, score
     "gecco_posterior_fwd": _ROWS + [_P, _I, _P, _I, _P, _P, _P],
-    "gecco_posterior_bwd": _ROWS + [_P, _P, _P, _P],              # traj, score, post
+    # blocks, n_blocks, out_row, n_out, traj, score, post
+    "gecco_posterior_bwd": _ROWS + [_P, _I, _P, _I, _P, _P, _P, _P],
     # blocks, n_blocks, out_row, n_out, plane_width, planes, logs
     "gecco_align_bwd": _ROWS + [_P, _I, _P, _I, _I, _P, _P, _P],
-    "gecco_align_fwd": _ROWS + [_P, _P, _P, _P, _P, _P, _P, _P],  # planes, logs, iv, jv,
-                                                                  # total, out, coords
+    # blocks, n_blocks, out_row, n_out, plane_width, planes, logs, iv, jv,
+    # total, out, coords
+    "gecco_align_fwd": _ROWS + [_P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     "gecco_pair_posterior": _ROWS + [_I, _P, _P, _P],             # n_post, score, post
     # iv, jv, total, env_stride, planes, logs (scratch), out, coords
     "gecco_pair_align": _ROWS + [_P, _P, _P, _I, _P, _P, _P, _P, _P],

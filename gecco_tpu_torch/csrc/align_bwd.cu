@@ -273,7 +273,7 @@ align_bwd_kernel_wide(RowArgs a, const int32_t* __restrict__ out_row, int n_out,
     float* bJl = logs + 2 * rows + at;
     float* bCl = logs + 3 * rows + at;
     park_backward<THREADS, CHUNK>(a, row, tsm, nm, U, sh,
-                                  ParkedOut{pM, pI, blog, bNl, bJl, bCl, 0}, 0, row.L - 1);
+                                  ParkedOut{pM, pI, blog, bNl, bJl, bCl, 0, WIDTH}, 0, row.L - 1);
     const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
     for (size_t idx = static_cast<size_t>(row.L) * WIDTH + threadIdx.x;
          idx < static_cast<size_t>(a.stride) * WIDTH; idx += THREADS) {

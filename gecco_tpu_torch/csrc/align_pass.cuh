@@ -42,6 +42,16 @@
 // shuffle scan and a pass over the warp totals combine with the same tie
 // rule.  Five barriers a residue inside the envelope (two per Forward, one
 // for the delete max-scan and the row max), two outside it.
+//
+// warp_align_forward is the same pass for one warp that holds a whole row
+// (lane l holding nodes [l*C, (l+1)*C)), with no barrier: the Forward
+// step is warp_forward_step, the old row's last node reaches the next lane
+// by a shuffle, the delete max-scan is the warp's shuffle scan alone and
+// the row max a butterfly; the envelope's own Forward is a pass of its
+// own (warp_envelope_forward), since it needs only the residues.  Both
+// forms take each node's OA cells (oa_cells) and delete chain step
+// (delete_map, apply) from the functions below, so that the tie rules
+// exist once.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -86,6 +96,83 @@ __device__ __forceinline__ void apply(const MaxMap& f, float& x, int& px) {
 
 __device__ __forceinline__ float gate(float t) { return t > 0.0f ? 0.0f : NEG; }
 
+// The map a node applies to the delete chain: H_k = max(sM_k + g_md_k,
+// H_{k-1} + g_dd_k), the carry only if strictly greater.
+__device__ __forceinline__ MaxMap delete_map(float g_dd, float sM, float g_md, int qM) {
+    return MaxMap{g_dd, sM + g_md, qM};
+}
+
+// One node's optimal-accuracy match and insert cells.  sM, sI (and their
+// payloads qM, qI) hold the node's old row on entry and its new row on
+// return; fromM, fromI, fromD are node k-1's old-row values plus their
+// gates (payM, payI, payD their payloads); g_mi, g_ii the node's own
+// gates, node_neg 0 or NEG (the node mask), ppM, ppI its posteriors and
+// `start` the payload of a new start here.  Predecessor priority M, I, D
+// on ties; a new start where that max <= 0; the insert prefers M on ties.
+__device__ __forceinline__ void oa_cells(float& sM, float& sI, int& qM, int& qI, float fromM,
+                                         float fromI, float fromD, int payM, int payI,
+                                         int payD, float g_mi, float g_ii, float node_neg,
+                                         float ppM, float ppI, int start) {
+    const float pmax = fmaxf(fromM, fmaxf(fromI, fromD));
+    const bool useM = fromM >= pmax;
+    const bool useI = !useM && fromI >= pmax;
+    const float fromMi = sM + g_mi;
+    const float fromIi = sI + g_ii;
+    const bool useMi = fromMi >= fromIi;
+    const int payIn = useMi ? qM : qI;
+    sI = (node_neg + ppI) + fmaxf(fromMi, fromIi);
+    qI = payIn;
+    sM = (node_neg + ppM) + fmaxf(pmax, 0.0f);
+    qM = pmax <= 0.0f ? start : (useM ? payM : (useI ? payI : payD));
+}
+
+// The inclusive max-plus scan of a warp's maps (lane 0 first) and its
+// exclusive form, what enters each lane (the identity at lane 0).
+__device__ __forceinline__ MaxMap warp_delete_scan(const MaxMap& f) {
+    MaxMap inc = f;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+        MaxMap left;
+        left.g = __shfl_up_sync(0xffffffffu, inc.g, o);
+        left.v = __shfl_up_sync(0xffffffffu, inc.v, o);
+        left.p = __shfl_up_sync(0xffffffffu, inc.p, o);
+        if ((threadIdx.x & 31) >= o) inc = compose(left, inc);
+    }
+    return inc;
+}
+
+__device__ __forceinline__ MaxMap warp_exclusive(const MaxMap& inc) {
+    MaxMap exc;
+    exc.g = __shfl_up_sync(0xffffffffu, inc.g, 1);
+    exc.v = __shfl_up_sync(0xffffffffu, inc.v, 1);
+    exc.p = __shfl_up_sync(0xffffffffu, inc.p, 1);
+    if ((threadIdx.x & 31) == 0) exc = MaxMap{0.0f, -INFINITY, -1};
+    return exc;
+}
+
+// The row max over a warp with its lowest node and that node's payload,
+// every lane left with the same.
+__device__ __forceinline__ void warp_row_max(float& rmax, int& rk, int& rp) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, rmax, o);
+        const int ok = __shfl_xor_sync(0xffffffffu, rk, o);
+        const int op = __shfl_xor_sync(0xffffffffu, rp, o);
+        if (ov > rmax || (ov == rmax && ok < rk)) {
+            rmax = ov;
+            rk = ok;
+            rp = op;
+        }
+    }
+}
+
+// A null2 log-ratio, log((matocc . e_a + insocc + xocc) / (sum matocc +
+// insocc + xocc)), in float32: log(max(n2, 1e-300)), where 1e-300 rounds to 0.
+__device__ __forceinline__ float null2_ratio(float dot, float mat, float ins, float xocc) {
+    const float inv_tot = 1.0f / fmaxf(mat + ins + xocc, 1e-30f);
+    return logf(fmaxf((dot + ins + xocc) * inv_tot, 0.0f));
+}
+
 template <int THREADS>
 struct AlignScratch {
     // the OA state a thread's last node hands to the next thread's first
@@ -102,22 +189,22 @@ struct AlignScratch {
 // (origin 0); kernel K parks the envelope's residues only.
 template <typename Plane, typename Scalar>
 struct ParkedRows {
-    Plane *pM, *pI;                   // [rows][WIDTH] bfloat16
+    Plane *pM, *pI;                   // [rows][width] bfloat16
     Scalar *blog, *bNl, *bJl, *bCl;   // [rows]
     int origin;
+    size_t width;                     // a parked row's nodes, at least the block's
 };
 using ParkedOut = ParkedRows<__nv_bfloat16, float>;
 using ParkedIn = ParkedRows<const __nv_bfloat16, const float>;
 
 // Backward from the row's last residue down to `lo`, parking residues
-// lo..hi (0-based).  Every thread of the block calls it; `U` [WIDTH + 1] is
-// its delete-chain basis (backward_step.cuh).
+// lo..hi (0-based).  Every thread of the block calls it; `U` [THREADS *
+// CHUNK + 1] is its delete-chain basis (backward_step.cuh).
 template <int THREADS, int CHUNK>
 __device__ __forceinline__ void park_backward(const RowArgs& a, const Row& row, const float* tsm,
                                               const float* nm, float* U,
                                               BackwardScratch<THREADS>& sh,
                                               const ParkedOut& parked, int lo, int hi) {
-    constexpr int WIDTH = THREADS * CHUNK;
     const int base = threadIdx.x * CHUNK;
     Backward<THREADS, CHUNK> bw{tsm, nm, U, sh};
     bw.init(row.move);
@@ -126,8 +213,8 @@ __device__ __forceinline__ void park_backward(const RowArgs& a, const Row& row, 
         if (!init) bw.step(emission_row(a.e_odds, row, o + 1), row.M, row.loop, row.move);
         if (o > hi) continue;
         const int at = o - parked.origin;
-        __nv_bfloat16* m = parked.pM + static_cast<size_t>(at) * WIDTH + base;
-        __nv_bfloat16* ins = parked.pI + static_cast<size_t>(at) * WIDTH + base;
+        __nv_bfloat16* m = parked.pM + static_cast<size_t>(at) * parked.width + base;
+        __nv_bfloat16* ins = parked.pI + static_cast<size_t>(at) * parked.width + base;
 #pragma unroll
         for (int j = 0; j < CHUNK; ++j) {
             m[j] = __float2bfloat16_rn(bw.bM[j]);
@@ -223,8 +310,9 @@ __device__ __forceinline__ void align_forward(const RowArgs& a, const Row& row, 
         const int in_pm = tid > 0 ? ash.pm[tid - 1] : -1;
         const int in_pi = tid > 0 ? ash.pi[tid - 1] : -1;
         const int in_pd = tid > 0 ? ash.pd[tid - 1] : -1;
-        const __nv_bfloat16* rowM = parked.pM + static_cast<size_t>(at) * WIDTH + base;
-        const __nv_bfloat16* rowI = parked.pI + static_cast<size_t>(at) * WIDTH + base;
+        const size_t node = static_cast<size_t>(at) * parked.width + base;
+        const __nv_bfloat16* rowM = parked.pM + node;
+        const __nv_bfloat16* rowI = parked.pI + node;
 #pragma unroll
         for (int j = CHUNK - 1; j >= 0; --j) {
             const int k = base + j;
@@ -238,18 +326,9 @@ __device__ __forceinline__ void align_forward(const RowArgs& a, const Row& row, 
             const int payM = j > 0 ? qM[j - 1] : in_pm;
             const int payI = j > 0 ? qI[j - 1] : in_pi;
             const int payD = j > 0 ? qD[j - 1] : in_pd;
-            const float pmax = fmaxf(fromM, fmaxf(fromI, fromD));
-            const bool useM = fromM >= pmax;
-            const bool useI = !useM && fromI >= pmax;
-            const float node_neg = nm[k] > 0.0f ? 0.0f : NEG;
-            const float fromMi = sM[j] + gate(tmi[k]);
-            const float fromIi = sI[j] + gate(tii[k]);
-            const bool useMi = fromMi >= fromIi;
-            const int payIn = useMi ? qM[j] : qI[j];
-            sI[j] = (node_neg + ppI) + fmaxf(fromMi, fromIi);
-            qI[j] = payIn;
-            sM[j] = (node_neg + ppM) + fmaxf(pmax, 0.0f);
-            qM[j] = pmax <= 0.0f ? (i + 1) * PAY + (k + 1) : (useM ? payM : (useI ? payI : payD));
+            oa_cells(sM[j], sI[j], qM[j], qI[j], fromM, fromI, fromD, payM, payI, payD,
+                     gate(tmi[k]), gate(tii[k]), nm[k] > 0.0f ? 0.0f : NEG, ppM, ppI,
+                     (i + 1) * PAY + (k + 1));
         }
         // delete chain (max-plus scan) and the row max with its lowest node
         MaxMap f{0.0f, -INFINITY, -1};
@@ -258,38 +337,16 @@ __device__ __forceinline__ void align_forward(const RowArgs& a, const Row& row, 
 #pragma unroll
         for (int j = 0; j < CHUNK; ++j) {
             const int k = base + j;
-            f = compose(f, MaxMap{gate(tdd[k]), sM[j] + gate(tmd[k]), qM[j]});
+            f = compose(f, delete_map(gate(tdd[k]), sM[j], gate(tmd[k]), qM[j]));
             if (sM[j] > rmax) {
                 rmax = sM[j];
                 rk = k;
                 rp = qM[j];
             }
         }
-        MaxMap inc = f;
-#pragma unroll
-        for (int o = 1; o < 32; o <<= 1) {
-            MaxMap left;
-            left.g = __shfl_up_sync(0xffffffffu, inc.g, o);
-            left.v = __shfl_up_sync(0xffffffffu, inc.v, o);
-            left.p = __shfl_up_sync(0xffffffffu, inc.p, o);
-            if (lane >= o) inc = compose(left, inc);
-        }
-        MaxMap exc;
-        exc.g = __shfl_up_sync(0xffffffffu, inc.g, 1);
-        exc.v = __shfl_up_sync(0xffffffffu, inc.v, 1);
-        exc.p = __shfl_up_sync(0xffffffffu, inc.p, 1);
-        if (lane == 0) exc = MaxMap{0.0f, -INFINITY, -1};
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) {
-            const float ov = __shfl_xor_sync(0xffffffffu, rmax, o);
-            const int ok = __shfl_xor_sync(0xffffffffu, rk, o);
-            const int op = __shfl_xor_sync(0xffffffffu, rp, o);
-            if (ov > rmax || (ov == rmax && ok < rk)) {
-                rmax = ov;
-                rk = ok;
-                rp = op;
-            }
-        }
+        const MaxMap inc = warp_delete_scan(f);
+        const MaxMap exc = warp_exclusive(inc);
+        warp_row_max(rmax, rk, rp);
         if (lane == 31) {
             ash.dg[warp] = inc.g;
             ash.dv[warp] = inc.v;
@@ -310,7 +367,7 @@ __device__ __forceinline__ void align_forward(const RowArgs& a, const Row& row, 
             const int k = base + j;
             sD[j] = x;
             qD[j] = px;
-            apply(MaxMap{gate(tdd[k]), sM[j] + gate(tmd[k]), qM[j]}, x, px);
+            apply(delete_map(gate(tdd[k]), sM[j], gate(tmd[k]), qM[j]), x, px);
         }
         float vmax = ash.mv[0];
         int kmax = ash.mk[0], pmax_ = ash.mp[0];
@@ -357,9 +414,7 @@ __device__ __forceinline__ void align_forward(const RowArgs& a, const Row& row, 
             mat += ash.red[w][21];
             ins += ash.red[w][22];
         }
-        const float inv_tot = 1.0f / fmaxf(mat + ins + xocc, 1e-30f);
-        // log(max(n2, 1e-300)) in float32, where 1e-300 rounds to 0
-        out[static_cast<size_t>(r) * 22 + 1 + tid] = logf(fmaxf((dot + ins + xocc) * inv_tot, 0.0f));
+        out[static_cast<size_t>(r) * 22 + 1 + tid] = null2_ratio(dot, mat, ins, xocc);
     }
     if (tid == 0) {
         out[static_cast<size_t>(r) * 22] = logf(eC * emove + 1e-38f) + elog;
@@ -368,6 +423,299 @@ __device__ __forceinline__ void align_forward(const RowArgs& a, const Row& row, 
         c[1] = b_row;
         c[2] = b_pay % PAY;
         c[3] = b_node;
+    }
+}
+
+// A lane's C bfloat16 values of a parked row, node l*C + j at value j:
+// kernel F stores a lane's nodes contiguously, so a lane loads its own
+// 2C bytes, in 16-, 8- or 4-byte vectors where C allows.
+template <int C>
+struct Bf16Lane {
+    uint32_t w[(C + 1) / 2];  // value 2m in the low half of word m
+
+    __device__ __forceinline__ void load(const __nv_bfloat16* src) {
+        if constexpr (C % 2 == 1) {
+            const unsigned short* h = reinterpret_cast<const unsigned short*>(src);
+#pragma unroll
+            for (int m = 0; m < (C + 1) / 2; ++m) {
+                const uint32_t lo = __ldg(h + 2 * m);
+                const uint32_t hi = 2 * m + 1 < C ? __ldg(h + 2 * m + 1) : 0u;
+                w[m] = lo | (hi << 16);
+            }
+        } else if constexpr (C % 8 == 0) {
+#pragma unroll
+            for (int q = 0; q < C / 8; ++q) {
+                const uint4 u = __ldg(reinterpret_cast<const uint4*>(src) + q);
+                w[4 * q] = u.x;
+                w[4 * q + 1] = u.y;
+                w[4 * q + 2] = u.z;
+                w[4 * q + 3] = u.w;
+            }
+        } else if constexpr (C % 4 == 0) {
+#pragma unroll
+            for (int q = 0; q < C / 4; ++q) {
+                const uint2 u = __ldg(reinterpret_cast<const uint2*>(src) + q);
+                w[2 * q] = u.x;
+                w[2 * q + 1] = u.y;
+            }
+        } else {
+#pragma unroll
+            for (int q = 0; q < C / 2; ++q)
+                w[q] = __ldg(reinterpret_cast<const uint32_t*>(src) + q);
+        }
+    }
+
+    __device__ __forceinline__ float operator[](int j) const {
+        const uint32_t u = w[j >> 1];
+        return __uint_as_float((j & 1) ? (u & 0xffff0000u) : (u << 16));
+    }
+};
+
+// The OA gates of a lane's C nodes as bits (bit j: node l*C + j): t[slot]
+// where transition `slot` is nonzero, `node` where the node mask nm is.
+struct GateBits {
+    uint32_t t[T_BM];
+    uint32_t node;
+    __device__ __forceinline__ float operator()(int slot, int j) const {
+        return (t[slot] >> j) & 1u ? 0.0f : NEG;
+    }
+    __device__ __forceinline__ float node_neg(int j) const {
+        return (node >> j) & 1u ? 0.0f : NEG;
+    }
+};
+
+// `nm` is the lane's node-mask row of a lane-interleaved table.
+template <int C, typename Trans>
+__device__ __forceinline__ GateBits gate_bits(const Trans& tr, const float* nm) {
+    GateBits g;
+#pragma unroll
+    for (int slot = 0; slot < T_BM; ++slot) {
+        g.t[slot] = 0u;
+#pragma unroll
+        for (int j = 0; j < C; ++j) g.t[slot] |= (tr(slot, j) > 0.0f ? 1u : 0u) << j;
+    }
+    g.node = 0u;
+#pragma unroll
+    for (int j = 0; j < C; ++j) g.node |= (nm[j * 32] > 0.0f ? 1u : 0u) << j;
+    return g;
+}
+
+// Kernel F's parked rows of one envelope row as a warp reads them: residue
+// o's planes at pM + o * width and pI + o * width (bfloat16, node order),
+// its logs at blog[o], bNl[o], bJl[o], bCl[o].
+struct WarpParked {
+    const __nv_bfloat16 *pM, *pI;
+    const float *blog, *bNl, *bJl, *bCl;
+    size_t width;
+};
+
+// The envelope's own Forward over residues iv..jv (1-based) of `xs` by one
+// warp, C nodes a lane (`esm`: the lane's emission-odds rows of a
+// lane-interleaved table, `tr` its transitions, `chain` their delete-chain
+// slopes); lane 0 writes envsc to *out.
+template <int C, typename Trans>
+__device__ __forceinline__ void warp_envelope_forward(const int8_t* xs, int iv, int jv,
+                                                      const float* esm, const Trans& tr,
+                                                      const ChainScan& chain, float* out) {
+    constexpr int W = 32 * C;
+    const float Ld = fmaxf(static_cast<float>(jv - iv) + 1.0f, 1.0f);
+    const float eloop = Ld / (Ld + 3.0f);
+    const float emove = 3.0f / (Ld + 3.0f);
+    float eM[C], eI[C], eD[C], e[C];
+#pragma unroll
+    for (int j = 0; j < C; ++j) eM[j] = eI[j] = eD[j] = 0.0f;
+    float eN = 1.0f, eB = emove, eJ = 0.0f, eC = 0.0f, elog = 0.0f;
+    const int n = jv - iv + 1;
+    ResidueStream x(xs + (iv - 1), n);
+    {
+        const int x0 = n > 0 ? x.next() : 0;
+#pragma unroll
+        for (int j = 0; j < C; ++j) e[j] = esm[x0 * W + j * 32];
+    }
+    for (int i = 0; i < n; ++i) {
+        const int xn = i + 1 < n ? x.next() : 0;
+        float en[C];
+#pragma unroll
+        for (int j = 0; j < C; ++j) en[j] = esm[xn * W + j * 32];
+        elog += logf(warp_forward_step<C>(eM, eI, eD, eN, eB, eJ, eC, e, tr, chain, eloop, emove));
+#pragma unroll
+        for (int j = 0; j < C; ++j) e[j] = en[j];
+    }
+    if ((threadIdx.x & 31) == 0) *out = logf(eC * emove + 1e-38f) + elog;
+}
+
+// align_forward for one warp that holds the row, C nodes a lane, all its
+// state in registers: residues i = 1 .. jv of `xs` (L residues, length
+// model loop/move) with envelope [iv, jv] and Forward score `total`, over
+// kernel F's parked rows `pk`; `esm`, `tr`, `chain` as
+// warp_envelope_forward's, `g` the OA gates.  Writes out[1..21] and
+// coords[0..3]; the envelope's own Forward (out[0]) is
+// warp_envelope_forward's.  No barrier.
+template <int C, typename Trans>
+__device__ __forceinline__ void warp_align_forward(const int8_t* xs, int L, float loop, float move,
+                                                   int iv, int jv, float total,
+                                                   const WarpParked& pk, const float* esm,
+                                                   const Trans& tr, const ChainScan& chain,
+                                                   const GateBits& g, float* out,
+                                                   int32_t* coords) {
+    constexpr unsigned FULL = 0xffffffffu;
+    constexpr int W = 32 * C;
+    const int lane = threadIdx.x & 31;
+    const int base = lane * C;
+    const float log_loop = logf(loop);
+    float Mv[C], Iv[C], Dv[C];      // full-sequence Forward
+    float sM[C], sI[C], sD[C];      // optimal accuracy
+    int qM[C], qI[C], qD[C];        // their start payloads
+    float matocc[C], insocc[C];
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+        Mv[j] = Iv[j] = Dv[j] = matocc[j] = insocc[j] = 0.0f;
+        sM[j] = sI[j] = sD[j] = NEG;
+        qM[j] = qI[j] = qD[j] = -1;
+    }
+    float N = 1.0f, B = move, J = 0.0f, Cs = 0.0f, lsf = 0.0f;
+    float xpart = 0.0f, best = NEG;
+    int b_pay = 0, b_row = 0, b_node = 0;
+    float kept[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // residue i's N, J, C, log scale before
+                                               // its step, at lane i mod 32
+    ResidueStream x(xs, L);
+    float e[C];
+    {
+        const int x0 = jv > 0 ? x.next() : 0;
+#pragma unroll
+        for (int j = 0; j < C; ++j) e[j] = esm[x0 * W + j * 32];
+    }
+    for (int i = 0; i < jv; ++i) {
+        // the next residue's emissions, one step ahead
+        const int xn = i + 1 < jv ? x.next() : 0;
+        float en[C];
+#pragma unroll
+        for (int j = 0; j < C; ++j) en[j] = esm[xn * W + j * 32];
+        if (i + 1 < iv) {
+            lsf += logf(warp_forward_step<C>(Mv, Iv, Dv, N, B, J, Cs, e, tr, chain, loop, move));
+#pragma unroll
+            for (int j = 0; j < C; ++j) e[j] = en[j];
+            continue;
+        }
+        // residue i's parked rows, in flight while the Forward step runs
+        Bf16Lane<C> rowM, rowI;
+        rowM.load(pk.pM + static_cast<size_t>(i) * pk.width + base);
+        rowI.load(pk.pI + static_cast<size_t>(i) * pk.width + base);
+        const float blog = __ldg(pk.blog + i);
+        const int k = i & 31;
+        if (lane == k) {
+            kept[0] = N;
+            kept[1] = J;
+            kept[2] = Cs;
+            kept[3] = lsf;
+        }
+        // OA values this lane's last node hands to the next lane (old row)
+        float in_fm = __shfl_up_sync(FULL, sM[C - 1] + g(T_MM, C - 1), 1);
+        float in_fi = __shfl_up_sync(FULL, sI[C - 1] + g(T_IM, C - 1), 1);
+        float in_fd = __shfl_up_sync(FULL, sD[C - 1] + g(T_DM, C - 1), 1);
+        int in_pm = __shfl_up_sync(FULL, qM[C - 1], 1);
+        int in_pi = __shfl_up_sync(FULL, qI[C - 1], 1);
+        int in_pd = __shfl_up_sync(FULL, qD[C - 1], 1);
+        if (lane == 0) {
+            in_fm = in_fi = in_fd = NEG;
+            in_pm = in_pi = in_pd = -1;
+        }
+        lsf += logf(warp_forward_step<C>(Mv, Iv, Dv, N, B, J, Cs, e, tr, chain, loop, move));
+        const float pscale = expf(lsf + blog - total);
+
+        // optimal accuracy: match and insert cells, nodes high to low so
+        // that node j-1 still holds the old row
+#pragma unroll
+        for (int j = C - 1; j >= 0; --j) {
+            const float ppM = Mv[j] * rowM[j] * pscale;
+            const float ppI = Iv[j] * rowI[j] * pscale;
+            matocc[j] += ppM;
+            insocc[j] += ppI;
+            const int q = j > 0 ? j - 1 : 0;  // node j-1 of this lane
+            const float fromM = j > 0 ? sM[q] + g(T_MM, q) : in_fm;
+            const float fromI = j > 0 ? sI[q] + g(T_IM, q) : in_fi;
+            const float fromD = j > 0 ? sD[q] + g(T_DM, q) : in_fd;
+            const int payM = j > 0 ? qM[q] : in_pm;
+            const int payI = j > 0 ? qI[q] : in_pi;
+            const int payD = j > 0 ? qD[q] : in_pd;
+            oa_cells(sM[j], sI[j], qM[j], qI[j], fromM, fromI, fromD, payM, payI, payD,
+                     g(T_MI, j), g(T_II, j), g.node_neg(j), ppM, ppI,
+                     (i + 1) * PAY + (base + j + 1));
+        }
+        // delete chain (max-plus scan) and the row max with its lowest node
+        MaxMap f{0.0f, -INFINITY, -1};
+        float rmax = -INFINITY;
+        int rk = 0, rp = -1;
+#pragma unroll
+        for (int j = 0; j < C; ++j) {
+            f = compose(f, delete_map(g(T_DD, j), sM[j], g(T_MD, j), qM[j]));
+            if (sM[j] > rmax) {
+                rmax = sM[j];
+                rk = base + j;
+                rp = qM[j];
+            }
+        }
+        const MaxMap exc = warp_exclusive(warp_delete_scan(f));
+        float xd = NEG;
+        int px = -1;
+        apply(exc, xd, px);
+#pragma unroll
+        for (int j = 0; j < C; ++j) {
+            sD[j] = xd;
+            qD[j] = px;
+            apply(delete_map(g(T_DD, j), sM[j], g(T_MD, j), qM[j]), xd, px);
+        }
+        warp_row_max(rmax, rk, rp);
+        if (rmax > best) {
+            best = rmax;
+            b_pay = rp;
+            b_row = i + 1;
+            b_node = rk + 1;
+        }
+        // special-state posteriors of residues i - k .. i, one a lane
+        if (k == 31 || i == jv - 1) {
+            const int mine = i - k + lane;
+            if (lane <= k && mine >= iv - 1) {
+                const float lsp = kept[3];
+                const float ppN =
+                    expf(logf(kept[0] + TINY) + lsp + log_loop + __ldg(pk.bNl + mine) - total);
+                const float ppJ =
+                    expf(logf(kept[1] + TINY) + lsp + log_loop + __ldg(pk.bJl + mine) - total);
+                const float ppC =
+                    expf(logf(kept[2] + TINY) + lsp + log_loop + __ldg(pk.bCl + mine) - total);
+                xpart += fminf(fmaxf(ppN + ppJ + ppC, 0.0f), 1.0f);
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < C; ++j) e[j] = en[j];
+    }
+
+    // null2: sum matocc, sum insocc and matocc . e_a for the 21 residues
+    float part[23];
+#pragma unroll
+    for (int q = 0; q < 23; ++q) part[q] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+        part[21] += matocc[j];
+        part[22] += insocc[j];
+#pragma unroll
+        for (int q = 0; q < 21; ++q) part[q] += matocc[j] * esm[q * W + j * 32];
+    }
+    const float xocc = warp_sum(xpart);
+    const float mat = warp_sum(part[21]);
+    const float ins = warp_sum(part[22]);
+    float dot = 0.0f;
+#pragma unroll
+    for (int q = 0; q < 21; ++q) {
+        const float sum = warp_sum(part[q]);
+        if (lane == q) dot = sum;
+    }
+    if (lane < 21) out[1 + lane] = null2_ratio(dot, mat, ins, xocc);
+    if (lane == 0) {
+        coords[0] = b_pay / PAY;
+        coords[1] = b_row;
+        coords[2] = b_pay % PAY;
+        coords[3] = b_node;
     }
 }
 

@@ -75,7 +75,7 @@ pair_align_kernel(RowArgs a, const int32_t* __restrict__ iv_in,
     const size_t at = static_cast<size_t>(r) * env_stride;
     float* blog = logs + at;
     const ParkedOut parked{planes + at * WIDTH, planes + (rows + at) * WIDTH,
-                           blog, blog + rows, blog + 2 * rows, blog + 3 * rows, iv - 1};
+                           blog, blog + rows, blog + 2 * rows, blog + 3 * rows, iv - 1, WIDTH};
     park_backward<THREADS, CHUNK>(a, row, tsm, nm, U, bsh, parked, iv - 1, jv - 1);
     __syncthreads();  // pass 1 is done with U; its parked rows are visible to the block
 #pragma unroll

@@ -22,12 +22,12 @@ The JAX package pre-gathers each pair's emission stream into a padded
 ``[cells, Lps, C, Mp]`` tensor; the kernels here read emissions by
 residue index from the bank tensor.  Per-row outputs are padded per call
 to its longest row (``stride``) and are zero past each row's length.  A
-call takes rows of any width class: kernels E and G run one launch at the
-widest class among them; kernels D and F one launch per class up to
-1,024 nodes (a warp a row, blocks of one profile's rows) and one for the
-rows above, each row written in place (``StreamDomains`` calls one class
-at a time).  Each kernel wrapper takes the plain version for CPU tensors
-and launches its kernel (``csrc/``) or raises for CUDA tensors.
+call takes rows of any width class: kernels D–G make one launch per class
+up to 1,024 nodes (a warp or a block a row, blocks of one profile's rows)
+and one for the rows above, each row read and written in place
+(``StreamDomains`` calls one class at a time).  Each kernel wrapper takes
+the plain version for CPU tensors and launches its kernel (``csrc/``) or
+raises for CUDA tensors.
 """
 
 import functools
@@ -49,8 +49,9 @@ from .profile import length_model, null1_score
 __all__ = [
     "forward_pairs", "forward_pairs_plain", "forward_launches",
     "posterior_fwd", "posterior_fwd_plain", "posterior_fwd_launches", "posterior_bwd",
-    "posterior_bwd_plain", "envelopes", "align_bwd", "align_bwd_plain", "align_bwd_launches",
-    "align_fwd", "align_fwd_plain",
+    "posterior_bwd_plain", "posterior_bwd_launches", "envelopes", "align_bwd",
+    "align_bwd_plain", "align_bwd_launches", "align_fwd", "align_fwd_plain",
+    "align_fwd_launches",
     "DeviceDomains", "StreamDomains", "assemble_domains",
 ]
 
@@ -65,12 +66,15 @@ _N_ENVS = 4
 #: most rows of one profile that a block of kernel C takes at widths 128
 #: to 1,024 (its warps take them in turn; ``hmm.kernels.pair_blocks``)
 FORWARD_BLOCK_ROWS = 16
-#: most rows of one profile that a block of kernels D and F takes in each
-#: width class, one a warp (``stream_fwd.cu``'s ``D_WARPS``,
-#: ``align_bwd.cu``'s ``F_WARPS``): a launch of few rows a profile then
-#: runs every row side by side.  The classes above 1,024 nodes take a
-#: block a row.
+#: most rows of one profile that a block of kernels D, E and F takes in
+#: each width class, one a warp (``stream_fwd.cu``'s ``D_WARPS``,
+#: ``stream_bwd.cu``'s ``E_WARPS``, ``align_bwd.cu``'s ``F_WARPS``): a
+#: launch of few rows a profile then runs every row side by side.  The
+#: classes above 1,024 nodes take a block a row.
 DOMAIN_BLOCK_ROWS = {128: 4, 256: 4, 512: 8, 1024: 8, 2048: 1, 4096: 1}
+#: the same for kernel G (``align_fwd.cu``'s ``G_WARPS``), which takes a
+#: block a row from 512 nodes up
+ALIGN_FWD_BLOCK_ROWS = {128: 4, 256: 4, 512: 1, 1024: 1, 2048: 1, 4096: 1}
 
 
 def forward_pairs(pack: SeqPack, bank: TorchBank, seq_idx, prof_idx,
@@ -168,7 +172,7 @@ class _Rows:
     """The (sequence, profile) rows of one call of kernels D–G.
 
     ``width`` is the call's node width, the widest class among the rows
-    (kernels E and G launch at it, F's planes take it); ``stride`` its
+    (kernels J and K launch at it, F's planes take it); ``stride`` its
     residue axis, the longest row (at least 1).  The
     plain versions compute over ``min(width, Mp)`` nodes (the bank holds
     no more; nodes past a model's length are zero either way).
@@ -205,26 +209,28 @@ class _Rows:
     # -- kernel launch ------------------------------------------------------
 
     def launch(self, fn_name: str, counter: str, *tail: torch.Tensor) -> None:
-        """Run kernel ``fn_name`` over the rows; ``tail`` are its array arguments."""
+        """Run kernel ``fn_name`` (J or K) over the rows, a block a row at the
+        call's width; ``tail`` are its array arguments."""
         launch_rows(fn_name, counter, self.pack, self.bank, self.seq.to(torch.int32),
                     self.prof.to(torch.int32), self.width, *tail, log_space=False,
                     stride=self.stride)
 
-    def launches(self, fn_name: str, counter: str, *tail) -> Dict[int, functools.partial]:
-        """Kernel ``fn_name``'s launches over the rows (kernels D and F),
+    def launches(self, fn_name: str, counter: str, *tail,
+                 rows_per_block=DOMAIN_BLOCK_ROWS) -> Dict[int, functools.partial]:
+        """Kernel ``fn_name``'s launches over the rows (kernels D–G),
         prepared on the device and keyed by the width each runs at: one
         per width class up to ``DENSE_WARP_WIDTH`` nodes, its rows cut into
-        blocks of at most ``DOMAIN_BLOCK_ROWS`` rows of one profile
+        blocks of at most ``rows_per_block`` rows of one profile
         (:func:`~.kernels.pair_blocks`), and one at the launch's width for
         the rows of the classes above (a block a row).  Each takes the
         rows in that order, its block table and count, each row's output
         slot (its index here) and the number of slots, then ``tail``, so
-        that the kernel writes every row in place.  The schedule goes to
-        the device in one copy."""
+        that the kernel reads and writes every row in place.  The schedule
+        goes to the device in one copy."""
         n, bank = self.n, self.bank
         if n == 0:
             return {}
-        order, blocks = pair_blocks(bank.class_of, self.prof_host, DOMAIN_BLOCK_ROWS)
+        order, blocks = pair_blocks(bank.class_of, self.prof_host, rows_per_block)
         key = numpy.minimum(bank.class_of[self.prof_host[order]], 2 * DENSE_WARP_WIDTH)
         bounds = numpy.flatnonzero(numpy.diff(key)) + 1
         starts, ends = numpy.concatenate(([0], bounds)), numpy.concatenate((bounds, [n]))
@@ -402,12 +408,20 @@ def posterior_bwd(pack: SeqPack, bank: TorchBank, seq_idx, prof_idx,
     """
     if _kernel_device(pack, bank) == "cpu":
         return posterior_bwd_plain(pack, bank, seq_idx, prof_idx, traj, score)
+    launches, post = posterior_bwd_launches(pack, bank, seq_idx, prof_idx, traj, score)
+    return run_launches(launches, lambda: post)
+
+
+def posterior_bwd_launches(pack: SeqPack, bank: TorchBank, seq_idx, prof_idx,
+                           traj: torch.Tensor, score: torch.Tensor):
+    """Kernel E's launches over these rows (:meth:`_Rows.launches`, reading
+    ``traj`` and ``score`` at each row's slot) and the ``post`` they fill
+    once every one has run."""
     rows = _Rows(pack, bank, seq_idx, prof_idx)
     _check_rows_tensor(traj, (5, rows.n, rows.stride), torch.float32, "traj")
     _check_rows_tensor(score, (rows.n,), torch.float32, "score")
     post = torch.empty((2, rows.n, rows.stride), dtype=torch.float32, device=bank.device)
-    rows.launch("gecco_posterior_bwd", "posterior_bwd", traj, score, post)
-    return post
+    return rows.launches("gecco_posterior_bwd", "posterior_bwd", traj, score, post), post
 
 
 def posterior_bwd_plain(pack: SeqPack, bank: TorchBank, seq_idx, prof_idx,
@@ -590,6 +604,17 @@ def align_fwd(pack: SeqPack, bank: TorchBank, seq_idx, prof_idx,
     """
     if _kernel_device(pack, bank) == "cpu":
         return align_fwd_plain(pack, bank, seq_idx, prof_idx, planes, logs, iv, jv, total)
+    launches, out = align_fwd_launches(pack, bank, seq_idx, prof_idx, planes, logs, iv, jv,
+                                       total)
+    return run_launches(launches, lambda: out)
+
+
+def align_fwd_launches(pack: SeqPack, bank: TorchBank, seq_idx, prof_idx,
+                       planes: torch.Tensor, logs: torch.Tensor, iv, jv, total: torch.Tensor):
+    """Kernel G's launches over these envelope rows (:meth:`_Rows.launches`
+    with blocks of ``ALIGN_FWD_BLOCK_ROWS``; each also takes the planes'
+    width, and reads the planes, logs, envelope and total at each row's
+    slot) and the ``(out, coords)`` they fill once every one has run."""
     rows = _Rows(pack, bank, seq_idx, prof_idx)
     iv, jv = _envelope_bounds(rows, iv, jv)
     _check_rows_tensor(planes, (2, rows.n, rows.stride, rows.width), torch.bfloat16, "planes")
@@ -597,8 +622,9 @@ def align_fwd(pack: SeqPack, bank: TorchBank, seq_idx, prof_idx,
     _check_rows_tensor(total, (rows.n,), torch.float32, "total")
     out = torch.empty((rows.n, 22), dtype=torch.float32, device=bank.device)
     coords = torch.empty((rows.n, 4), dtype=torch.int32, device=bank.device)
-    rows.launch("gecco_align_fwd", "align_fwd", planes, logs, iv, jv, total, out, coords)
-    return out, coords
+    launches = rows.launches("gecco_align_fwd", "align_fwd", rows.width, planes, logs, iv, jv,
+                             total, out, coords, rows_per_block=ALIGN_FWD_BLOCK_ROWS)
+    return launches, (out, coords)
 
 
 def _envelope_bounds(rows: _Rows, iv, jv) -> Tuple[torch.Tensor, torch.Tensor]:

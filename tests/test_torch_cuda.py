@@ -26,9 +26,9 @@ from gecco_tpu_torch.hmm.pipeline import SearchPipeline
 from gecco_tpu_torch.hmm.synthetic import (
     consensus_proteins, plant_domain, synthetic_profiles, synthetic_proteins)
 from gecco_tpu_torch.hmm.stream import (
-    DOMAIN_BLOCK_ROWS, FORWARD_BLOCK_ROWS, StreamDomains, align_bwd, align_bwd_plain, align_fwd, align_fwd_plain, envelopes,
-    forward_pairs, forward_pairs_plain, posterior_bwd, posterior_bwd_plain, posterior_fwd,
-    posterior_fwd_plain)
+    ALIGN_FWD_BLOCK_ROWS, DOMAIN_BLOCK_ROWS, FORWARD_BLOCK_ROWS, StreamDomains, align_bwd,
+    align_bwd_plain, align_fwd, align_fwd_plain, envelopes, forward_pairs, forward_pairs_plain,
+    posterior_bwd, posterior_bwd_plain, posterior_fwd, posterior_fwd_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -297,7 +297,7 @@ def test_forward_kernel_edges(node_workload, device, windows):
 
 @pytest.fixture(scope="module")
 def domain_edge_rows(node_workload, device):
-    """Rows of kernels D and F on the node bank, one group per width class
+    """Rows of kernels D-G on the node bank, one group per width class
     as ``StreamDomains`` makes them: every profile against
     18 sequences (more rows than a block of ``DOMAIN_BLOCK_ROWS``), the
     empty one and the 2,000-residue one among them, and a sequence of
@@ -318,6 +318,7 @@ def domain_edge_rows(node_workload, device):
     s_idx = numpy.concatenate([s_idx, numpy.full(len(outer), long)])
     p_idx = numpy.concatenate([p_idx, outer])
     assert (numpy.bincount(p_idx) > max(DOMAIN_BLOCK_ROWS.values())).all()
+    assert max(ALIGN_FWD_BLOCK_ROWS.values()) <= max(DOMAIN_BLOCK_ROWS.values())
     width = bank.class_of[p_idx]
     return pack, bank, [(s_idx[width == w], p_idx[width == w]) for w in sorted(set(width))]
 
@@ -384,6 +385,67 @@ def test_align_bwd_kernel_edges(domain_edge_rows):
         assert (planes.permute(0, 2, 1, 3)[:, :, beyond] == 0).all()
     print(f"kernel F on the node bank ({len(groups)} classes): largest relative difference "
           f"{errs[0]!r} (planes), {errs[1]!r} nats (logs)")
+
+
+def test_posterior_bwd_kernel_edges(domain_edge_rows):
+    """Kernel E against its plain version on the rows of
+    ``test_posterior_fwd_kernel_edges`` (models at 32 k - 1, 32 k and 32 k
+    + 1 nodes, more rows of a profile than a block, interleaved profiles, an
+    empty sequence, 4,096 residues), on plain kernel D's trajectories and
+    scores: one launch a class; mocc and pB within 1e-4 and zero past each
+    row's length.  The largest difference is printed."""
+    pack, bank, groups = domain_edge_rows
+    err = 0.0
+    for s_idx, p_idx in groups:
+        traj, score = posterior_fwd_plain(pack, bank, s_idx, p_idx)
+        before = _build.launches["posterior_bwd"]
+        post = posterior_bwd(pack, bank, s_idx, p_idx, traj, score)
+        torch.cuda.synchronize()
+        assert _build.launches["posterior_bwd"] == before + 1
+        want = posterior_bwd_plain(pack, bank, s_idx, p_idx, traj, score)
+        _close(post, want, 1e-4)
+        err = max(err, float((post - want).abs().max()))
+        past = _past_length(pack, s_idx, post.shape[2])
+        assert (post[:, past] == 0).all()
+    print(f"kernel E on the node bank ({len(groups)} classes): largest difference {err!r} "
+          f"(mocc, pB)")
+
+
+def test_align_fwd_kernel_edges(domain_edge_rows):
+    """Kernel G against its plain version on the non-empty rows of
+    ``test_posterior_fwd_kernel_edges``, on plain kernel F's planes and
+    plain kernel D's scores: one launch a class; envelopes [1, 1], [L, L],
+    [1, L], iv = jv and others in turn; the envelope score and null2
+    log-ratios within 1e-3 nats, the coordinates equal.  The largest
+    differences are printed."""
+    pack, bank, groups = domain_edge_rows
+    rng = numpy.random.default_rng(13)
+    errs = [0.0, 0.0]
+    for s_idx, p_idx in groups:
+        keep = pack.lens_host[s_idx] > 0
+        s_idx, p_idx = s_idx[keep], p_idx[keep]
+        L = pack.lens_host[s_idx].astype(numpy.int64)
+        iv = 1 + (rng.random(len(L)) * L).astype(numpy.int64)
+        jv = iv + (rng.random(len(L)) * (L - iv + 1)).astype(numpy.int64)
+        kind = numpy.arange(len(L)) % 5
+        iv[kind == 0], jv[kind == 0] = 1, 1
+        iv[kind == 1], jv[kind == 1] = L[kind == 1], L[kind == 1]
+        iv[kind == 2], jv[kind == 2] = 1, L[kind == 2]
+        jv[kind == 3] = iv[kind == 3]
+        _traj, score = posterior_fwd_plain(pack, bank, s_idx, p_idx)
+        planes, logs = align_bwd_plain(pack, bank, s_idx, p_idx)
+        before = _build.launches["align_fwd"]
+        out, coords = align_fwd(pack, bank, s_idx, p_idx, planes, logs, iv, jv, score)
+        torch.cuda.synchronize()
+        assert _build.launches["align_fwd"] == before + 1
+        want_out, want_coords = align_fwd_plain(pack, bank, s_idx, p_idx, planes, logs, iv, jv,
+                                                score)
+        _close(out, want_out, 1e-3)
+        errs[0] = max(errs[0], float((out[:, 0] - want_out[:, 0]).abs().max()))
+        errs[1] = max(errs[1], float((out[:, 1:] - want_out[:, 1:]).abs().max()))
+        assert torch.equal(coords, want_coords)
+    print(f"kernel G on the node bank ({len(groups)} classes): largest difference "
+          f"{errs[0]!r} nats (envelope score), {errs[1]!r} (null2 log-ratios)")
 
 
 @pytest.mark.parametrize("kernel, plain, tol", [

@@ -33,8 +33,10 @@ from gecco_tpu_torch.hmm.bank import TorchBank
 from gecco_tpu_torch.hmm.kernels import SeqPack
 from gecco_tpu_torch.hmm.profile import profiles_from_arrays
 from gecco_tpu_torch.hmm.stream import (
-    DOMAIN_BLOCK_ROWS, StreamDomains, align_bwd, align_bwd_launches, align_bwd_plain, align_fwd,
-    envelopes, posterior_bwd, posterior_fwd, posterior_fwd_launches, posterior_fwd_plain)
+    ALIGN_FWD_BLOCK_ROWS, DOMAIN_BLOCK_ROWS, StreamDomains, align_bwd, align_bwd_launches,
+    align_bwd_plain, align_fwd, align_fwd_launches, align_fwd_plain, envelopes, posterior_bwd,
+    posterior_bwd_launches, posterior_bwd_plain, posterior_fwd, posterior_fwd_launches,
+    posterior_fwd_plain)
 
 torch.set_num_threads(1)
 
@@ -382,40 +384,75 @@ def schedule_rows():
     return pack, bank, s_idx, p_idx
 
 
-def _plain_rows(kernel, pack, bank, seq, prof, width):
-    """The plain version over rows, padded to ``width`` nodes (planes)."""
-    if kernel == "posterior_fwd":
+#: each kernel's prepared launches and plain version
+_SCHEDULED = {
+    "posterior_fwd": (posterior_fwd_launches, posterior_fwd_plain),
+    "posterior_bwd": (posterior_bwd_launches, posterior_bwd_plain),
+    "align_bwd": (align_bwd_launches, align_bwd_plain),
+    "align_fwd": (align_fwd_launches, align_fwd_plain),
+}
+
+
+def _inputs(kernel, pack, bank, seq, prof, env):
+    """A kernel's own inputs for rows ``(seq, prof)``, from the plain
+    versions of the kernels before it: kernel D's trajectories and scores
+    for E; kernel F's planes, each row's envelope (``env[seq]``) and its
+    Forward score for G."""
+    if kernel == "posterior_bwd":
         return posterior_fwd_plain(pack, bank, seq, prof)
-    planes, logs = align_bwd_plain(pack, bank, seq, prof)
+    if kernel == "align_fwd":
+        planes, logs = align_bwd_plain(pack, bank, seq, prof)
+        iv, jv = (torch.as_tensor(env[seq, k], dtype=torch.int32) for k in (0, 1))
+        return planes, logs, iv, jv, posterior_fwd_plain(pack, bank, seq, prof)[1]
+    return ()
+
+
+def _plain_rows(kernel, pack, bank, seq, prof, width, inputs=()):
+    """The plain version over rows, padded to ``width`` nodes (planes)."""
+    got = _SCHEDULED[kernel][1](pack, bank, seq, prof, *inputs)
+    if kernel != "align_bwd":
+        return got if isinstance(got, tuple) else (got,)
+    planes, logs = got
     wide = torch.zeros(planes.shape[:3] + (width,), dtype=planes.dtype)
     wide[..., : planes.shape[3]] = planes
     return wide, logs
 
 
-@pytest.mark.parametrize("kernel", ["posterior_fwd", "align_bwd"])
+@pytest.mark.parametrize("kernel", ["posterior_fwd", "posterior_bwd", "align_bwd", "align_fwd"])
 def test_domain_launches_schedule(schedule_rows, monkeypatch, kernel):
-    """The host side of kernels D and F: one launch per width class up to
+    """The host side of kernels D-G: one launch per width class up to
     1,024 nodes (so one per group of ``StreamDomains``, which are of one
     class), whose block table covers every row of the class once, each
-    block within one profile and at most ``DOMAIN_BLOCK_ROWS`` rows, and
-    one launch (a block a row) for the classes above; every row goes to
-    its own output slot.  Each launch is stood in for by the plain version
-    over its blocks' rows (the CUDA launch needs a card), written at the
-    slots it is given; the outputs equal the plain version's over all
-    rows, whose profiles interleave."""
+    block within one profile and at most ``DOMAIN_BLOCK_ROWS`` rows
+    (``ALIGN_FWD_BLOCK_ROWS`` for G), and one launch (a block a row) for the
+    classes above; every row goes to its own output slot, and kernels E and
+    G take their inputs there.  Each launch is stood in for by the plain
+    version over its blocks' rows (the CUDA launch needs a card), given
+    the inputs at the slots it is given and written at them; the outputs
+    equal the plain version's over all rows, whose profiles interleave.
+    G's rows are the non-empty ones, each with an envelope."""
     pack, bank, s_idx, p_idx = schedule_rows
-    prepare = {"posterior_fwd": posterior_fwd_launches, "align_bwd": align_bwd_launches}[kernel]
+    prepare = _SCHEDULED[kernel][0]
+    caps = ALIGN_FWD_BLOCK_ROWS if kernel == "align_fwd" else DOMAIN_BLOCK_ROWS
+    lens = pack.lens_host
+    rng = numpy.random.default_rng(12)
+    iv = 1 + (rng.random(pack.S) * lens).astype(numpy.int64)
+    env = numpy.stack([iv, iv + (rng.random(pack.S) * (lens - iv + 1)).astype(numpy.int64)], 1)
+    if kernel == "align_fwd":
+        keep = lens[s_idx] > 0
+        s_idx, p_idx = s_idx[keep], p_idx[keep]
+    n_in = {"posterior_fwd": 0, "posterior_bwd": 2, "align_bwd": 0, "align_fwd": 5}[kernel]
     seen = []
 
     def launch_rows(fn_name, counter, pack_, bank_, seq, prof, width, table, n_blocks, out_row,
                     n_out, *tail, log_space, stride):
         assert (fn_name, counter, log_space) == (f"gecco_{kernel}", kernel, False)
         assert n_out == len(s_idx) and stride == max(1, int(pack.lens_host[s_idx].max()))
-        if kernel == "align_bwd":
+        plane_width = 0
+        if kernel in ("align_bwd", "align_fwd"):
             plane_width, *tail = tail
             assert plane_width == 4096
-        else:
-            plane_width = 0
+        inputs, outputs = tail[:n_in], tail[n_in:]
         classes = set(bank_.class_of[prof.numpy()].tolist())
         if width <= 1024:
             assert classes == {width} and table.shape == (n_blocks, 2)
@@ -425,15 +462,16 @@ def test_domain_launches_schedule(schedule_rows, monkeypatch, kernel):
             runs = [(r, 1) for r in range(len(seq))]
         covered = numpy.zeros(len(seq), dtype=int)
         for first, count in runs:
-            assert 1 <= count <= DOMAIN_BLOCK_ROWS[width]
+            assert 1 <= count <= caps[width]
             rows = slice(first, first + count)
             covered[rows] += 1
             assert len(set(prof[rows].tolist())) == 1
             slots = out_row[rows].long()
             got = _plain_rows(kernel, pack_, bank_, seq[rows].numpy(), prof[rows].numpy(),
-                              plane_width)
-            for out, value in zip(tail, got):
-                if value.dim() == 1:
+                              plane_width,
+                              [t[slots] if t.dim() == 1 else t[:, slots] for t in inputs])
+            for out, value in zip(outputs, got):
+                if kernel == "align_fwd" or value.dim() == 1:
                     out[slots] = value
                 else:
                     out[:, slots] = 0
@@ -442,21 +480,26 @@ def test_domain_launches_schedule(schedule_rows, monkeypatch, kernel):
         seen.append(width)
 
     monkeypatch.setattr(stream, "launch_rows", launch_rows)
-    launches, out = prepare(pack, bank, [], [])
-    assert launches == {} and out[0].shape[1] == 0
+    none = numpy.zeros(0, dtype=numpy.int64)
+    launches, out = prepare(pack, bank, none, none, *_inputs(kernel, pack, bank, none, none, env))
+    assert launches == {} and (out if isinstance(out, tuple) else (out,))[0].numel() == 0
     for w in (128, 256, 4096):   # a group of one class, as StreamDomains makes them
         one = bank.class_of[p_idx] == w
-        launches, _out = prepare(pack, bank, s_idx[one], p_idx[one])
+        launches, _out = prepare(pack, bank, s_idx[one], p_idx[one],
+                                 *_inputs(kernel, pack, bank, s_idx[one], p_idx[one], env))
         assert list(launches) == [w]
-    launches, out = prepare(pack, bank, s_idx, p_idx)
+    inputs = _inputs(kernel, pack, bank, s_idx, p_idx, env)
+    launches, out = prepare(pack, bank, s_idx, p_idx, *inputs)
     assert sorted(launches) == [128, 256, 4096]
     for launch in launches.values():
         launch()
     assert sorted(seen) == [128, 256, 4096]
-    want = _plain_rows(kernel, pack, bank, s_idx, p_idx, 4096)
-    for got, value in zip(out, want):
+    want = _plain_rows(kernel, pack, bank, s_idx, p_idx, 4096, inputs)
+    for got, value in zip(out if isinstance(out, tuple) else (out,), want):
         assert got.shape == value.shape
         if got.dtype == torch.bfloat16:
             torch.testing.assert_close(got.float(), value.float(), atol=1e-30, rtol=BF16_STEP)
+        elif got.dtype == torch.int32:
+            assert torch.equal(got, value)
         else:
             torch.testing.assert_close(got, value, atol=1e-5, rtol=1e-5)

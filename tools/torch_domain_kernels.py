@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time kernels D and F of the PyTorch port alone, per width class.
+"""Time kernels D-G of the PyTorch port alone, per width class.
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU::
 
@@ -17,12 +17,19 @@ to 1,024 nodes of 2,766 Pfam-shaped profiles, two sets of rows against
 * ``dense``: 3,000 rows over every profile of the class, as the
   ``max_filter`` search's launches (throughput).
 
-Each launch is prepared beforehand (``hmm.stream.posterior_fwd_launches``,
-``align_bwd_launches``) and timed alone between CUDA events: the mean of
-5 (clustered) or 2 (dense) launches after a warm-up.  Prints the card's
+Kernel E takes kernel D's outputs for the same rows; kernel G takes
+kernel F's planes and one envelope a row, the first that
+``hmm.stream.envelopes`` finds from E's posteriors (the whole sequence
+where it finds none).  Each launch is prepared beforehand
+(``hmm.stream.posterior_fwd_launches`` and the like) and timed alone
+between CUDA events: the mean of 5 (clustered) or 2 (dense) launches
+after a warm-up.  A tree whose ``hmm.stream`` has no prepared launches
+for E or G (before they took a block schedule) launches them through
+``_Rows.launch``, set up beforehand in the same way.  Prints the card's
 name and power limit, then one JSON line a tree.
 """
 
+import functools
 import json
 import os
 import subprocess
@@ -68,6 +75,41 @@ def time_tree(tree):
         torch.cuda.synchronize()
         return start.elapsed_time(end) / repeats
 
+    def one_launch(launches, out):
+        (launch,) = launches.values()
+        return launch, out
+
+    def posterior_bwd(s_idx, p_idx, traj, score):
+        if hasattr(stream, "posterior_bwd_launches"):
+            return one_launch(*stream.posterior_bwd_launches(pack, bank, s_idx, p_idx, traj,
+                                                             score))
+        rows = stream._Rows(pack, bank, s_idx, p_idx)
+        post = torch.empty((2, rows.n, rows.stride), dtype=torch.float32, device=device)
+        return functools.partial(rows.launch, "gecco_posterior_bwd", "posterior_bwd", traj,
+                                 score, post), post
+
+    def align_fwd(s_idx, p_idx, planes, logs, iv, jv, total):
+        if hasattr(stream, "align_fwd_launches"):
+            return one_launch(*stream.align_fwd_launches(pack, bank, s_idx, p_idx, planes, logs,
+                                                         iv, jv, total))
+        rows = stream._Rows(pack, bank, s_idx, p_idx)
+        out = torch.empty((rows.n, 22), dtype=torch.float32, device=device)
+        coords = torch.empty((rows.n, 4), dtype=torch.int32, device=device)
+        env = [torch.as_tensor(a.astype(numpy.int32), device=device) for a in (iv, jv)]
+        return functools.partial(rows.launch, "gecco_align_fwd", "align_fwd", planes, logs,
+                                 *env, total, out, coords), (out, coords)
+
+    def first_envelopes(s_idx, post):
+        """Each row's first envelope slot, else its whole sequence (host)."""
+        lens = pack.lens[torch.as_tensor(s_idx, device=device)]
+        env_i, env_j, _over = stream.envelopes(post[0], post[1], lens)
+        ok = env_j >= env_i
+        first = torch.argmax(ok.int(), dim=1, keepdim=True)
+        has = ok.any(dim=1)
+        iv = torch.where(has, env_i.gather(1, first)[:, 0], 1)
+        jv = torch.where(has, env_j.gather(1, first)[:, 0], lens)
+        return iv.cpu().numpy(), jv.cpu().numpy()
+
     rng = numpy.random.default_rng(0)
     ms = {}
     for width in CLASSES:
@@ -76,12 +118,18 @@ def time_tree(tree):
                                             ("dense", 3000, members, 2)):
             s_idx = rng.integers(0, len(seqs), n)
             p_idx = rng.choice(profiles, n)
-            for name, prepare in (("D", stream.posterior_fwd_launches),
-                                  ("F", stream.align_bwd_launches)):
-                launches, out = prepare(pack, bank, s_idx, p_idx)
-                (launch,) = launches.values()
-                ms[f"{name} {case} {width}"] = timed(launch, repeats)
-                del launches, out
+            launch, (traj, score) = one_launch(*stream.posterior_fwd_launches(pack, bank, s_idx,
+                                                                              p_idx))
+            ms[f"D {case} {width}"] = timed(launch, repeats)
+            launch, post = posterior_bwd(s_idx, p_idx, traj, score)
+            ms[f"E {case} {width}"] = timed(launch, repeats)
+            iv, jv = first_envelopes(s_idx, post)
+            launch, (planes, logs) = one_launch(*stream.align_bwd_launches(pack, bank, s_idx,
+                                                                           p_idx))
+            ms[f"F {case} {width}"] = timed(launch, repeats)
+            launch, _out = align_fwd(s_idx, p_idx, planes, logs, iv, jv, score)
+            ms[f"G {case} {width}"] = timed(launch, repeats)
+            del launch, traj, score, post, planes, logs, _out
             torch.cuda.empty_cache()
     print(json.dumps({"tree": tree, "ms": ms}), flush=True)
 
