@@ -10,8 +10,7 @@ Phases (each prints its wall seconds, each ends in a device sync):
 1. device: require CUDA, print the card's name and power limit, build
    the kernels from ``gecco_tpu_torch/csrc`` (printing the build's
    seconds), print the registers and spills (``nvcc -Xptxas -v``) of
-   every instantiation of kernels A, B, C, D, E, F, G, H (both
-   semirings), I and K;
+   every instantiation of kernels A-K (H in both semirings);
 2. kernels: each CUDA kernel against its plain PyTorch version on the
    card, at the main path's shapes (2,766 Pfam-shaped profiles plus one
    of 2,100 nodes), with a stated tolerance, timed beside it (A, C, H
@@ -73,10 +72,14 @@ Phases (each prints its wall seconds, each ends in a device sync):
    K) over the F3 candidates of phase 3, the same domains as
    ``StreamDomains.define`` gives on them, its launch counts, device
    milliseconds, peak device memory and host pairs; the same against
-   plain PyTorch on the first proteins' candidates; the bounds of
-   kernels D-G, J and K on that work; and every envelope found rescored
-   as a residue window by kernels C and B against their plain versions,
-   timed per width class between CUDA events;
+   plain PyTorch on the first proteins' candidates; the device ms of J,
+   K and D-G per width class (profiler), then J and K alone over the rows
+   ``PairDomains.define`` gave them and D-G alone over the rows
+   ``StreamDomains.define`` gave them (each launch prepared, then timed
+   between CUDA events), with each class's rows and J's and K's bound per
+   class; the bounds of kernels D-G, J and K on that work; and every
+   envelope found rescored as a residue window by kernels C and B against
+   their plain versions, timed per width class between CUDA events;
 7. CLI: ``gecco-tpu-torch run`` on the genome with the calibrated bank
    written as ``.h3m`` (accessions renamed to the embedded model's
    Pfam whitelist).
@@ -307,7 +310,10 @@ WIDTH_OF = {"ssv_kernel": lambda c: 32 * c, "ssv_kernel_wide": lambda c: 32 * c,
             "viterbi_kernel_wide": lambda t, c: t * c, "msv_kernel": lambda c: 32 * c,
             "msv_kernel_wide": lambda c: 32 * c, "forward_kernel": lambda c: 32 * c,
             "forward_kernel_wide": lambda t, c: t * c,
-            "pair_align_kernel": lambda t, c: t * c,
+            "pair_align_kernel": lambda c: 32 * c,
+            "pair_align_kernel_wide": lambda t, c: t * c,
+            "pair_posterior_kernel": lambda c: 32 * c,
+            "pair_posterior_kernel_wide": lambda t, c: t * c,
             "posterior_fwd_kernel": lambda c: 32 * c,
             "posterior_fwd_kernel_wide": lambda t, c: t * c,
             "posterior_bwd_kernel": lambda c: 32 * c,
@@ -329,7 +335,10 @@ REGISTER_REPORTS = (("ssv.cu", "ssv_kernel", 5), ("ssv.cu", "ssv_kernel_wide", 1
                     ("align_bwd.cu", "align_bwd_kernel_wide", 2),
                     ("align_fwd.cu", "align_fwd_kernel", 2),
                     ("align_fwd.cu", "align_fwd_kernel_wide", 4),
-                    ("pair_align.cu", "pair_align_kernel", 6),
+                    ("pair_posterior.cu", "pair_posterior_kernel", 4),
+                    ("pair_posterior.cu", "pair_posterior_kernel_wide", 2),
+                    ("pair_align.cu", "pair_align_kernel", 2),
+                    ("pair_align.cu", "pair_align_kernel_wide", 4),
                     ("dense.cu", "dense_kernel", 8), ("dense.cu", "dense_kernel_wide", 4))
 #: the ``__global__`` functions of each kernel timed by width class
 CLASS_KERNELS = {"ssv_filter": ("ssv_kernel", "ssv_kernel_wide"),
@@ -340,7 +349,9 @@ CLASS_KERNELS = {"ssv_filter": ("ssv_kernel", "ssv_kernel_wide"),
                  "posterior_fwd": ("posterior_fwd_kernel", "posterior_fwd_kernel_wide"),
                  "posterior_bwd": ("posterior_bwd_kernel", "posterior_bwd_kernel_wide"),
                  "align_bwd": ("align_bwd_kernel", "align_bwd_kernel_wide"),
-                 "align_fwd": ("align_fwd_kernel", "align_fwd_kernel_wide")}
+                 "align_fwd": ("align_fwd_kernel", "align_fwd_kernel_wide"),
+                 "pair_posterior": ("pair_posterior_kernel", "pair_posterior_kernel_wide"),
+                 "pair_align": ("pair_align_kernel", "pair_align_kernel_wide")}
 
 
 def ptxas_usage(text, name):
@@ -360,7 +371,7 @@ def ptxas_usage(text, name):
 
 def phase_registers():
     """``-Xptxas -v`` registers and spills of every instantiation of kernels
-    A-I and K, one ``nvcc`` a source, side by side."""
+    A-K, one ``nvcc`` a source, side by side."""
     from concurrent.futures import ThreadPoolExecutor
 
     from gecco_tpu_torch import _build
@@ -646,6 +657,13 @@ def phase_domain_kernels(device, profiles, bank, report, kernels):
             nbytes += b
         return flops, nbytes
 
+    def max_err(outs):
+        """Kernel G's or K's largest errors per width class: ``[envelope
+        score, null2 log-ratio]``."""
+        return {int(w): [float((got[0][:, c] - want[0][:, c]).abs().max()) for c in
+                         (slice(0, 1), slice(1, None))]
+                for w, (got, want) in zip(classes, outs)}
+
     def tensor_bytes(*tensors):
         return sum(float(t.numel() * t.element_size()) for t in tensors)
 
@@ -705,6 +723,7 @@ def phase_domain_kernels(device, profiles, bank, report, kernels):
            [("log_scale", got[0][:, 0], want[0][:, 0]) for got, want in outs]
            + [("logn2", got[0][:, 1:], want[0][:, 1:]) for got, want in outs], ms, plain_ms,
            work("align_fwd", fwd_rows, outs, in_bytes=envelope_bytes, cells_to=lambda a: a[5]))
+    null2_err = {"align_fwd": max_err(outs)}
 
     # kernel J over the pairs of D and E, kernel K over the rows of F and G
     outs, ms, plain_ms = run(domains.pair_posterior, domains.pair_posterior_plain, groups, 3)
@@ -730,6 +749,9 @@ def phase_domain_kernels(device, profiles, bank, report, kernels):
            + [("logn2", got[0][:, 1:], want[0][:, 1:]) for got, want in outs], ms, plain_ms,
            (flops, nbytes),
            two_kernel_ms=kernels["align_bwd"]["ms"] + kernels["align_fwd"]["ms"])
+    null2_err["pair_align"] = max_err(outs)
+    print(f"# largest envelope-score and null2 log-ratio (logn2) errors against the plain "
+          f"version per width class, nats: {json.dumps(null2_err)}", flush=True)
 
     # kernels B and C over each row's envelope as a residue window, and a
     # window of the whole sequence against the launch without one
@@ -812,16 +834,18 @@ def profiled_search(pipeline, seqs, device, path):
 
 
 @contextlib.contextmanager
-def recorded_domain_rows():
-    """Record the rows of each launch group of kernels D and F that
-    ``StreamDomains.define`` makes inside the block: yields ``{"posterior_fwd":
-    [(s_idx, p_idx), ...], "align_bwd": [(s_idx, p_idx, iv, jv, total), ...]}``,
-    host arrays (``total`` the device tensor the stage was given), one entry
-    per call of the posterior and alignment stages."""
+def recorded_domain_rows(cls=None):
+    """Record the rows of each launch group of the posterior and alignment
+    stages (kernels D and F, or J and K) that ``cls.define``
+    (``StreamDomains`` by default, or ``PairDomains``) makes inside the
+    block: yields ``{"posterior_fwd": [(s_idx, p_idx), ...], "align_bwd":
+    [(s_idx, p_idx, iv, jv, total), ...]}``, host arrays (``total`` the
+    device tensor the stage was given), one entry per call of each stage."""
     from gecco_tpu_torch.hmm import stream
 
+    cls = stream.StreamDomains if cls is None else cls
     rows = {"posterior_fwd": [], "align_bwd": []}
-    posteriors, align = stream.StreamDomains._posteriors, stream.StreamDomains._align
+    posteriors, align = cls._posteriors, cls._align
 
     def record_posteriors(self, pack, s_idx, p_idx):
         rows["posterior_fwd"].append((numpy.asarray(s_idx), numpy.asarray(p_idx)))
@@ -832,11 +856,11 @@ def recorded_domain_rows():
                                  + (total,))
         return align(self, pack, s_idx, p_idx, iv, jv, total)
 
-    stream.StreamDomains._posteriors, stream.StreamDomains._align = record_posteriors, record_align
+    cls._posteriors, cls._align = record_posteriors, record_align
     try:
         yield rows
     finally:
-        stream.StreamDomains._posteriors, stream.StreamDomains._align = posteriors, align
+        cls._posteriors, cls._align = posteriors, align
 
 
 def domain_kernels_alone(pack, bank, recorded, label, repeats):
@@ -1145,10 +1169,11 @@ def phase_pair_domains(device, state):
     pack = SeqPack(seqs, device)
 
     def define(domains, pairs):
-        """One ``define`` under the profiler, the launch counts set to 0 just before."""
+        """One ``define`` under the profiler, the launch counts set to 0 just
+        before; also records the rows of each launch group."""
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(device)
-        with device_trace() as prof:
+        with recorded_domain_rows(type(domains)) as rows, device_trace() as prof:
             _build.reset_launches()
             t0 = time.perf_counter()
             out = domains.define(seqs, pairs, pack)
@@ -1158,7 +1183,7 @@ def phase_pair_domains(device, state):
         per_kernel = {name: sum(ms for key, ms in by_key.items() if fn in key)
                       for name, fn in GLOBALS.items()}
         return out, dict(_build.launches), {k: v for k, v in per_kernel.items() if v}, seconds, \
-            torch.cuda.max_memory_allocated(device)
+            torch.cuda.max_memory_allocated(device), by_key, rows
 
     def same(got, want, what):
         require(sorted(got) == sorted(want), f"PairDomains pairs differ from {what}")
@@ -1178,16 +1203,19 @@ def phase_pair_domains(device, state):
         order = (StreamDomains, PairDomains) if turn == 0 else (PairDomains, StreamDomains)
         for cls in order:
             domains = cls(bank, profiles, backend="cuda")
-            out, launches, ms, seconds, peak = define(domains, pairs)
+            out, launches, ms, seconds, peak, by_key, rows = define(domains, pairs)
             print(f"# {cls.__name__}.define over {len(pairs)} candidates: {seconds!r} s, "
                   f"{sum(map(len, out.values()))} domains, host_pairs {domains.host_pairs}, "
                   f"peak device memory {peak} bytes, launches "
                   f"{json.dumps({k: v for k, v in launches.items() if v})}, device ms "
                   f"(profiler) {json.dumps(ms)}", flush=True)
+            path = PAIR_PATH if cls is PairDomains else DOMAIN_PATH
+            print(f"# {cls.__name__}.define device ms per width class (profiler) "
+                  f"{json.dumps({name: class_ms(by_key, name) for name in path})}", flush=True)
             if cls is PairDomains:
-                got, pair_launches = out, launches
+                got, pair_launches, pair_rows = out, launches, rows
             else:
-                want = out
+                want, stream_rows = out, rows
     for name in PAIR_PATH:
         require(pair_launches[name] > 0, f"kernel {name} was not launched by PairDomains")
     for name in DOMAIN_PATH:
@@ -1202,6 +1230,8 @@ def phase_pair_domains(device, state):
     print(f"# reference (PairDomains on plain torch, {len(head)} candidates of the first "
           f"{HEAD} proteins): {count} domains agree", flush=True)
 
+    pair_kernels_alone(pack, bank, pair_rows, 5)
+    domain_kernels_alone(pack, bank, stream_rows, "phase 6 define", 5)
     domain_bounds(pack, bank, pairs, want)
 
     # every envelope found, rescored as a residue window
@@ -1231,17 +1261,13 @@ def phase_pair_domains(device, state):
     state.update(pair_launches=pair_launches)
 
 
-def domain_bounds(pack, bank, pairs, domains):
-    """The bounds (:func:`bound`) of the domain kernels on the main path's
-    work: kernels D, E and J over every F3 candidate pair, F and G (and K,
-    which does both) over each envelope ``domains`` holds (the domains
-    ``StreamDomains.define`` found on them), cells counted as phase 2
-    counts them; inputs read once, the outputs a row writes (trajectories,
-    posteriors, bfloat16 planes, scores) written once."""
-    lengths = bank.lengths.cpu().numpy().astype(numpy.float64)
-    s_c, p_c = (numpy.array([pair[k] for pair in pairs], numpy.int64) for k in (0, 1))
-    env = [(s, p, d.ienv, d.jenv) for (s, p), doms in domains.items() for d in doms]
-    s_e, p_e, iv, jv = (numpy.array([row[k] for row in env], numpy.int64) for k in range(4))
+def domain_work(pack, lengths, s_c, p_c, env):
+    """``{kernel: (flops, bytes)}`` of the domain kernels: D, E and J over
+    the candidate pairs ``(s_c, p_c)``, F, G and K over the envelope rows
+    ``env`` (``(s, p, ienv, jenv)`` arrays), cells counted as phase 2
+    counts them; inputs read once, the outputs a row writes
+    (trajectories, posteriors, bfloat16 planes, scores) written once."""
+    s_e, p_e, iv, jv = env
     L_c, L_e = pack.lens_host[s_c].astype(numpy.float64), pack.lens_host[s_e].astype(numpy.float64)
     cells_e = L_e * lengths[p_e]
     # bytes a residue a row: D's five trajectories, E's and J's posteriors
@@ -1265,10 +1291,67 @@ def domain_bounds(pack, bank, pairs, domains):
     k_flops = float(((FLOPS_PER_CELL["align_bwd"] * (L_e - iv + 1)
                       + FLOPS_PER_CELL["align_fwd"] * jv) * lengths[p_e]).sum())
     work["pair_align"] = (k_flops, pair_work(pack, lengths, s_e, p_e, 0, 100.0 * len(s_e))[1])
+    return work
+
+
+def domain_bounds(pack, bank, pairs, domains):
+    """The bounds (:func:`bound`) of the domain kernels on the main path's
+    work (:func:`domain_work`): kernels D, E and J over every F3 candidate
+    pair, F and G (and K, which does both) over each envelope ``domains``
+    holds (the domains ``StreamDomains.define`` found on them)."""
+    lengths = bank.lengths.cpu().numpy().astype(numpy.float64)
+    s_c, p_c = (numpy.array([pair[k] for pair in pairs], numpy.int64) for k in (0, 1))
+    env = [(s, p, d.ienv, d.jenv) for (s, p), doms in domains.items() for d in doms]
+    env = tuple(numpy.array([row[k] for row in env], numpy.int64) for k in range(4))
+    work = domain_work(pack, lengths, s_c, p_c, env)
     print(f"# domain kernels' bounds on phase 6's define ({len(s_c)} candidate pairs, "
-          f"{len(s_e)} envelopes): " + json.dumps(
+          f"{len(env[0])} envelopes): " + json.dumps(
               {name: {**bound(*w), "flops": w[0], "bytes": w[1]} for name, w in work.items()}),
           flush=True)
+
+
+def pair_kernels_alone(pack, bank, recorded, repeats):
+    """Kernels J and K alone over the rows ``PairDomains.define`` gave them
+    (recorded by :func:`recorded_domain_rows`): each launch group's
+    launches, prepared beforehand (``pair_posterior_launches`` with
+    ``emit_pe=False``, as ``define`` calls it; ``pair_align_launches`` on
+    the group's envelopes and totals), timed alone between CUDA events
+    (mean of ``repeats`` after a warm-up) and summed per width class, with
+    each class's rows and bound (:func:`domain_work`)."""
+    from gecco_tpu_torch.hmm import domains
+
+    lengths = bank.lengths.cpu().numpy().astype(numpy.float64)
+    per_class = {name: {} for name in PAIR_PATH}
+    rows = {name: {} for name in PAIR_PATH}
+    work = {name: {} for name in PAIR_PATH}
+
+    def add(name, width, ms, n, w):
+        per_class[name][width] = per_class[name].get(width, 0.0) + ms
+        rows[name][width] = rows[name].get(width, 0) + n
+        old = work[name].get(width, (0.0, 0.0))
+        work[name][width] = (old[0] + w[0], old[1] + w[1])
+
+    none = numpy.zeros(0, numpy.int64)
+    for s_idx, p_idx in recorded["posterior_fwd"]:
+        launches, _out = domains.pair_posterior_launches(pack, bank, s_idx, p_idx, emit_pe=False)
+        (width,), (launch,) = launches.keys(), launches.values()   # one class a group
+        w = domain_work(pack, lengths, s_idx, p_idx, (none,) * 4)["pair_posterior"]
+        add("pair_posterior", width, timed_ms(launch, repeats)[1], len(s_idx), w)
+        del launches, _out
+    for s_idx, p_idx, iv, jv, total in recorded["align_bwd"]:
+        launches, _out = domains.pair_align_launches(pack, bank, s_idx, p_idx, iv, jv, total)
+        (width,), (launch,) = launches.keys(), launches.values()
+        w = domain_work(pack, lengths, none, none, (s_idx, p_idx, iv, jv))["pair_align"]
+        add("pair_align", width, timed_ms(launch, repeats)[1], len(s_idx), w)
+        del launches, _out
+    for name, stage in zip(PAIR_PATH, ("posterior_fwd", "align_bwd")):
+        bounds = {width: bound(*w)["bound_ms"] for width, w in sorted(work[name].items())}
+        print(f"# kernel {name} alone over phase 6's rows ({len(recorded[stage])} "
+              f"launch groups; each launch prepared, then timed between CUDA events, ms per "
+              f"width class): {json.dumps(dict(sorted(per_class[name].items())))}, total "
+              f"{sum(per_class[name].values())!r} ms; rows per class "
+              f"{json.dumps(dict(sorted(rows[name].items())))}; bound ms per class "
+              f"{json.dumps(bounds)}", flush=True)
 
 
 def phase_cli(device, state):

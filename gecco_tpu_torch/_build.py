@@ -73,9 +73,11 @@ _SIGNATURES.update({
     # blocks, n_blocks, out_row, n_out, plane_width, planes, logs, iv, jv,
     # total, out, coords
     "gecco_align_fwd": _ROWS + [_P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
-    "gecco_pair_posterior": _ROWS + [_I, _P, _P, _P],             # n_post, score, post
-    # iv, jv, total, env_stride, planes, logs (scratch), out, coords
-    "gecco_pair_align": _ROWS + [_P, _P, _P, _I, _P, _P, _P, _P, _P],
+    # blocks, n_blocks, out_row, n_out, n_post, traj (scratch), score, post
+    "gecco_pair_posterior": _ROWS + [_P, _I, _P, _I, _I, _P, _P, _P, _P],
+    # blocks, n_blocks, out_row, n_out, plane_width, iv, jv, total,
+    # env_stride, planes, logs (scratch), out, coords
+    "gecco_pair_align": _ROWS + [_P, _I, _P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P],
 })
 
 _lock = threading.Lock()

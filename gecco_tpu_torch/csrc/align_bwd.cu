@@ -24,8 +24,9 @@
 // profile's 8 transition and 21 emission-odds rows once, lane-interleaved,
 // and one warp computes the delete chain's basis U (the chain of nm alone)
 // into a 30th row; at C <= 8 a lane keeps its transitions, nm and U in
-// registers.  Per residue: the residue from ResidueStreamRev (read from the
-// last one down), the next step's emissions read one step ahead,
+// registers.  A row is warp_park_backward (align_pass.cuh, shared with
+// kernel K).  Per residue: the residue from ResidueStreamRev (read from
+// the last one down), the next step's emissions read one step ahead,
 // warp_backward_step (one shuffle, a five-step shuffle scan from the right
 // for the delete chain, bB one warp sum), no barrier; then the warp writes
 // each plane's residue row as contiguous bytes, the nodes from 32 * C to
@@ -63,37 +64,6 @@ constexpr int F_MIN_BLOCKS = C <= 4 ? 4 : C <= 8 ? 3 : C <= 16 ? 2 : 1;
 // rows of the staged table: 8 transitions, 21 emission odds (nm is the
 // last), U
 constexpr int F_SLOTS = N_TRANS + K_ALPHA + 1;
-
-// Store v[0..C) as bfloat16 at dst (2 * C bytes, aligned to their size's
-// largest power of two up to 16): 16-byte stores where C is a multiple of
-// 8, else 8-, 4- or 2-byte ones.
-template <int C>
-__device__ __forceinline__ void store_bf16(__nv_bfloat16* dst, const float (&v)[C]) {
-    if constexpr (C % 2 == 1) {
-#pragma unroll
-        for (int j = 0; j < C; ++j) dst[j] = __float2bfloat16_rn(v[j]);
-    } else {
-        uint32_t w[C / 2];
-#pragma unroll
-        for (int j = 0; j < C / 2; ++j) {
-            const __nv_bfloat162 pair = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
-            w[j] = *reinterpret_cast<const uint32_t*>(&pair);
-        }
-        if constexpr (C % 8 == 0) {
-#pragma unroll
-            for (int j = 0; j < C / 8; ++j)
-                reinterpret_cast<uint4*>(dst)[j] = make_uint4(w[4 * j], w[4 * j + 1],
-                                                              w[4 * j + 2], w[4 * j + 3]);
-        } else if constexpr (C % 4 == 0) {
-#pragma unroll
-            for (int j = 0; j < C / 4; ++j)
-                reinterpret_cast<uint2*>(dst)[j] = make_uint2(w[2 * j], w[2 * j + 1]);
-        } else {
-#pragma unroll
-            for (int j = 0; j < C / 2; ++j) reinterpret_cast<uint32_t*>(dst)[j] = w[j];
-        }
-    }
-}
 
 // What a block's warps need to run its run of rows.
 struct Rows {
@@ -135,71 +105,14 @@ __device__ __forceinline__ void align_rows(int c, const Rows& t) {
         const int row = t.first + r;
         const int s = t.a.seq[row];
         const int L = t.a.lens[s];
-        const float loop = t.a.loops[s];
-        const float move = t.a.moves[s];
         const size_t at = static_cast<size_t>(t.out_row[row]) * stride;
         __nv_bfloat16* pM = t.planes + at * t.plane_width;
         __nv_bfloat16* pI = t.planes + (rows + at) * t.plane_width;
         float* lg = t.logs + at;  // log row q at lg + q * rows
-        float bM[C], bI[C], e[C];
-        warp_backward_init<C>(bM, bI, tr, nu, move);
-        float bN = 0.0f, bJ = 0.0f, bC = move, ls = 0.0f;
-        float kept[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // residue o's bN, bJ, bC, ls at lane o mod 32
-        ResidueStreamRev x(t.a.xs + t.a.offsets[s], L);
-        {
-            const int x0 = L > 0 ? x.next() : 0;  // residue L-1, the first step's
-#pragma unroll
-            for (int j = 0; j < C; ++j) e[j] = esm[x0 * W + j * 32];
-        }
-        for (int o = L - 1; o >= 0; --o) {
-            if (o < L - 1) {
-                // residue o's emissions, for the step to o - 1
-                const int xn = o > 0 ? x.next() : 0;
-                float en[C];
-#pragma unroll
-                for (int j = 0; j < C; ++j) en[j] = esm[xn * W + j * 32];
-                warp_backward_step<C>(bM, bI, bN, bJ, bC, ls, e, tr, nu, right, loop, move);
-#pragma unroll
-                for (int j = 0; j < C; ++j) e[j] = en[j];
-            }
-            uint4* m4 = reinterpret_cast<uint4*>(pM + static_cast<size_t>(o) * t.plane_width);
-            uint4* i4 = reinterpret_cast<uint4*>(pI + static_cast<size_t>(o) * t.plane_width);
-            if constexpr (C <= 8) {
-                store_bf16<C>(reinterpret_cast<__nv_bfloat16*>(m4) + lane * C, bM);
-                store_bf16<C>(reinterpret_cast<__nv_bfloat16*>(i4) + lane * C, bI);
-                for (int q = 4 * C + lane; q < chunks; q += 32) {
-                    m4[q] = zero;
-                    i4[q] = zero;
-                }
-            } else {
-                store_bf16<C>(buf + lane * C, bM);
-                store_bf16<C>(buf + W + lane * C, bI);
-                __syncwarp();
-                const uint4* b4 = reinterpret_cast<const uint4*>(buf);
-                for (int q = lane; q < chunks; q += 32) {
-                    m4[q] = q < 4 * C ? b4[q] : zero;
-                    i4[q] = q < 4 * C ? b4[4 * C + q] : zero;
-                }
-                __syncwarp();
-            }
-            const int k = o & 31;
-            if (lane == k) {
-                kept[0] = bN;
-                kept[1] = bJ;
-                kept[2] = bC;
-                kept[3] = ls;
-            }
-            if (k == 0) {  // residues o .. min(o + 31, L - 1), one a lane
-                const int mine = o + lane;
-                if (mine < L) {
-                    const bool init = mine == L - 1;
-                    lg[mine] = kept[3];
-                    lg[rows + mine] = init ? NEG : logf(kept[0] + TINY) + kept[3];
-                    lg[2 * rows + mine] = init ? NEG : logf(kept[1] + TINY) + kept[3];
-                    lg[3 * rows + mine] = init ? logf(move) : logf(kept[2] + TINY) + kept[3];
-                }
-            }
-        }
+        const ParkedOut pk{pM, pI, lg, lg + rows, lg + 2 * rows, lg + 3 * rows, 0,
+                           static_cast<size_t>(t.plane_width)};
+        warp_park_backward<C>(t.a.xs + t.a.offsets[s], L, t.a.loops[s], t.a.moves[s], esm, tr, nu,
+                              right, pk, 0, L - 1, chunks, buf);
         const size_t tail = static_cast<size_t>(stride - L) * chunks;
         uint4* zM = reinterpret_cast<uint4*>(pM + static_cast<size_t>(L) * t.plane_width);
         uint4* zI = reinterpret_cast<uint4*>(pI + static_cast<size_t>(L) * t.plane_width);

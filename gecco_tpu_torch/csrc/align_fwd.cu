@@ -108,7 +108,7 @@ __device__ __forceinline__ void align_rows(int c, const Rows& t) {
         const size_t at = static_cast<size_t>(slot) * stride;
         const float* blog = t.logs + at;
         const WarpParked pk{t.planes + at * pw, t.planes + (rows + at) * pw, blog,
-                            blog + rows, blog + 2 * rows, blog + 3 * rows, pw};
+                            blog + rows, blog + 2 * rows, blog + 3 * rows, pw, 0};
         warp_align_forward<C>(xs, t.a.lens[s], t.a.loops[s], t.a.moves[s], iv, jv,
                               t.total[slot], pk, esm, tr, chain, g, out,
                               t.coords + static_cast<size_t>(slot) * 4);

@@ -43,14 +43,16 @@
 // rule.  Five barriers a residue inside the envelope (two per Forward, one
 // for the delete max-scan and the row max), two outside it.
 //
-// warp_align_forward is the same pass for one warp that holds a whole row
-// (lane l holding nodes [l*C, (l+1)*C)), with no barrier: the Forward
-// step is warp_forward_step, the old row's last node reaches the next lane
-// by a shuffle, the delete max-scan is the warp's shuffle scan alone and
-// the row max a butterfly; the envelope's own Forward is a pass of its
-// own (warp_envelope_forward), since it needs only the residues.  Both
-// forms take each node's OA cells (oa_cells) and delete chain step
-// (delete_map, apply) from the functions below, so that the tie rules
+// warp_park_backward and warp_align_forward are the same passes for one
+// warp that holds a whole row (lane l holding nodes [l*C, (l+1)*C)), with
+// no barrier: the Backward step is warp_backward_step, the Forward step
+// warp_forward_step, the old row's last node reaches the next lane by a
+// shuffle, the delete max-scan is the warp's shuffle scan alone and the
+// row max a butterfly; the envelope's own Forward is a pass of its own
+// (warp_envelope_forward), since it needs only the residues.  Kernels F
+// (park) and G (align) run them in one kernel each, kernel K both in one
+// warp.  Both forms take each node's OA cells (oa_cells) and delete chain
+// step (delete_map, apply) from the functions below, so that the tie rules
 // exist once.
 #pragma once
 
@@ -426,26 +428,40 @@ __device__ __forceinline__ void align_forward(const RowArgs& a, const Row& row, 
     }
 }
 
+// A load of data that the kernel does not write (RO: the read-only path,
+// __ldg), or of data that this warp wrote earlier in the same launch
+// (kernel K's parked rows: a plain load, which sees the warp's own stores
+// after a __syncwarp).
+template <bool RO, typename T>
+__device__ __forceinline__ T fetch(const T* p) {
+    if constexpr (RO) {
+        return __ldg(p);
+    } else {
+        return *p;
+    }
+}
+
 // A lane's C bfloat16 values of a parked row, node l*C + j at value j:
-// kernel F stores a lane's nodes contiguously, so a lane loads its own
-// 2C bytes, in 16-, 8- or 4-byte vectors where C allows.
+// kernels F and K store a lane's nodes contiguously, so a lane loads its
+// own 2C bytes, in 16-, 8- or 4-byte vectors where C allows.
 template <int C>
 struct Bf16Lane {
     uint32_t w[(C + 1) / 2];  // value 2m in the low half of word m
 
+    template <bool RO = true>
     __device__ __forceinline__ void load(const __nv_bfloat16* src) {
         if constexpr (C % 2 == 1) {
             const unsigned short* h = reinterpret_cast<const unsigned short*>(src);
 #pragma unroll
             for (int m = 0; m < (C + 1) / 2; ++m) {
-                const uint32_t lo = __ldg(h + 2 * m);
-                const uint32_t hi = 2 * m + 1 < C ? __ldg(h + 2 * m + 1) : 0u;
+                const uint32_t lo = fetch<RO>(h + 2 * m);
+                const uint32_t hi = 2 * m + 1 < C ? fetch<RO>(h + 2 * m + 1) : 0u;
                 w[m] = lo | (hi << 16);
             }
         } else if constexpr (C % 8 == 0) {
 #pragma unroll
             for (int q = 0; q < C / 8; ++q) {
-                const uint4 u = __ldg(reinterpret_cast<const uint4*>(src) + q);
+                const uint4 u = fetch<RO>(reinterpret_cast<const uint4*>(src) + q);
                 w[4 * q] = u.x;
                 w[4 * q + 1] = u.y;
                 w[4 * q + 2] = u.z;
@@ -454,14 +470,14 @@ struct Bf16Lane {
         } else if constexpr (C % 4 == 0) {
 #pragma unroll
             for (int q = 0; q < C / 4; ++q) {
-                const uint2 u = __ldg(reinterpret_cast<const uint2*>(src) + q);
+                const uint2 u = fetch<RO>(reinterpret_cast<const uint2*>(src) + q);
                 w[2 * q] = u.x;
                 w[2 * q + 1] = u.y;
             }
         } else {
 #pragma unroll
             for (int q = 0; q < C / 2; ++q)
-                w[q] = __ldg(reinterpret_cast<const uint32_t*>(src) + q);
+                w[q] = fetch<RO>(reinterpret_cast<const uint32_t*>(src) + q);
         }
     }
 
@@ -500,13 +516,137 @@ __device__ __forceinline__ GateBits gate_bits(const Trans& tr, const float* nm) 
     return g;
 }
 
-// Kernel F's parked rows of one envelope row as a warp reads them: residue
-// o's planes at pM + o * width and pI + o * width (bfloat16, node order),
-// its logs at blog[o], bNl[o], bJl[o], bCl[o].
+// Store v[0..C) as bfloat16 at dst (2 * C bytes, aligned to their size's
+// largest power of two up to 16): 16-byte stores where C is a multiple of
+// 8, else 8-, 4- or 2-byte ones.
+template <int C>
+__device__ __forceinline__ void store_bf16(__nv_bfloat16* dst, const float (&v)[C]) {
+    if constexpr (C % 2 == 1) {
+#pragma unroll
+        for (int j = 0; j < C; ++j) dst[j] = __float2bfloat16_rn(v[j]);
+    } else {
+        uint32_t w[C / 2];
+#pragma unroll
+        for (int j = 0; j < C / 2; ++j) {
+            const __nv_bfloat162 pair = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
+            w[j] = *reinterpret_cast<const uint32_t*>(&pair);
+        }
+        if constexpr (C % 8 == 0) {
+#pragma unroll
+            for (int j = 0; j < C / 8; ++j)
+                reinterpret_cast<uint4*>(dst)[j] = make_uint4(w[4 * j], w[4 * j + 1],
+                                                              w[4 * j + 2], w[4 * j + 3]);
+        } else if constexpr (C % 4 == 0) {
+#pragma unroll
+            for (int j = 0; j < C / 4; ++j)
+                reinterpret_cast<uint2*>(dst)[j] = make_uint2(w[2 * j], w[2 * j + 1]);
+        } else {
+#pragma unroll
+            for (int j = 0; j < C / 2; ++j) reinterpret_cast<uint32_t*>(dst)[j] = w[j];
+        }
+    }
+}
+
+// park_backward for one warp that holds the row, C nodes a lane (kernels F
+// and K): the Backward of the L residues of `xs` (length model loop/move)
+// from the last one down to `lo`, parking residues lo..hi into `pk` at
+// index o - pk.origin; `esm` the lane's emission-odds rows of a
+// lane-interleaved table, `tr` its transitions, `nu` nm and U_{k+1},
+// `right` chain_scan_right's slopes.  Each parked residue row is written
+// as contiguous bytes, its first `fill` 16-byte chunks (at least 4 C), the
+// nodes from 32 C on as zeros.  At C <= 8 each lane stores its C values as
+// bfloat16 vectors (16 bytes at C = 8, 8 at C = 4, the lanes side by
+// side); above, the lanes put their values in `buf`, two rows of 32 C
+// bfloat16 values of the warp's own in shared memory, and the warp stores
+// them 16 bytes a lane (__syncwarp, no barrier): with each lane's own
+// 16-byte stores, 2 C bytes apart, kernel F took 3x as long at C = 32 on
+// an H100 (tools/torch_domain_kernels.py).  Lane o mod 32 keeps residue
+// o's bN, bJ, bC and log scale; every 32 residues, and at `lo`, the warp
+// stores their logs as 32 consecutive floats of each of the four rows.
+template <int C, typename Trans, typename Nodes>
+__device__ __forceinline__ void warp_park_backward(const int8_t* xs, int L, float loop, float move,
+                                                   const float* esm, const Trans& tr,
+                                                   const Nodes& nu, const ChainScan& right,
+                                                   const ParkedOut& pk, int lo, int hi, int fill,
+                                                   __nv_bfloat16* buf) {
+    constexpr int W = 32 * C;
+    const int lane = threadIdx.x & 31;
+    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+    float bM[C], bI[C], e[C];
+    warp_backward_init<C>(bM, bI, tr, nu, move);
+    float bN = 0.0f, bJ = 0.0f, bC = move, ls = 0.0f;
+    float kept[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // residue o's bN, bJ, bC, ls at lane o mod 32
+    ResidueStreamRev x(xs, L);
+    {
+        const int x0 = L > 0 ? x.next() : 0;  // residue L-1, the first step's
+#pragma unroll
+        for (int j = 0; j < C; ++j) e[j] = esm[x0 * W + j * 32];
+    }
+    for (int o = L - 1; o >= lo; --o) {
+        if (o < L - 1) {
+            // residue o's emissions, for the step to o - 1
+            const int xn = o > 0 ? x.next() : 0;
+            float en[C];
+#pragma unroll
+            for (int j = 0; j < C; ++j) en[j] = esm[xn * W + j * 32];
+            warp_backward_step<C>(bM, bI, bN, bJ, bC, ls, e, tr, nu, right, loop, move);
+#pragma unroll
+            for (int j = 0; j < C; ++j) e[j] = en[j];
+        }
+        if (o <= hi) {
+            const size_t at = static_cast<size_t>(o - pk.origin) * pk.width;
+            uint4* m4 = reinterpret_cast<uint4*>(pk.pM + at);
+            uint4* i4 = reinterpret_cast<uint4*>(pk.pI + at);
+            if constexpr (C <= 8) {
+                store_bf16<C>(pk.pM + at + lane * C, bM);
+                store_bf16<C>(pk.pI + at + lane * C, bI);
+                for (int q = 4 * C + lane; q < fill; q += 32) {
+                    m4[q] = zero;
+                    i4[q] = zero;
+                }
+            } else {
+                store_bf16<C>(buf + lane * C, bM);
+                store_bf16<C>(buf + W + lane * C, bI);
+                __syncwarp();
+                const uint4* b4 = reinterpret_cast<const uint4*>(buf);
+                for (int q = lane; q < fill; q += 32) {
+                    m4[q] = q < 4 * C ? b4[q] : zero;
+                    i4[q] = q < 4 * C ? b4[4 * C + q] : zero;
+                }
+                __syncwarp();
+            }
+        }
+        const int k = o & 31;
+        if (lane == k) {
+            kept[0] = bN;
+            kept[1] = bJ;
+            kept[2] = bC;
+            kept[3] = ls;
+        }
+        if (k == 0 || o == lo) {  // residues o .. min(o - k + 31, hi), one a lane
+            const int mine = o - k + lane;
+            if (lane >= k && mine <= hi) {
+                const int at = mine - pk.origin;
+                const bool init = mine == L - 1;
+                pk.blog[at] = kept[3];
+                pk.bNl[at] = init ? NEG : logf(kept[0] + TINY) + kept[3];
+                pk.bJl[at] = init ? NEG : logf(kept[1] + TINY) + kept[3];
+                pk.bCl[at] = init ? logf(move) : logf(kept[2] + TINY) + kept[3];
+            }
+        }
+    }
+}
+
+// The parked rows of one envelope row as a warp reads them: residue o's
+// planes at pM + (o - origin) * width and pI + (o - origin) * width
+// (bfloat16, node order), its logs at blog[o - origin], bNl, bJl, bCl
+// likewise.  Kernel F parks whole sequences (origin 0), kernel K the
+// envelope's residues (origin iv - 1).
 struct WarpParked {
     const __nv_bfloat16 *pM, *pI;
     const float *blog, *bNl, *bJl, *bCl;
     size_t width;
+    int origin;
 };
 
 // The envelope's own Forward over residues iv..jv (1-based) of `xs` by one
@@ -547,11 +687,12 @@ __device__ __forceinline__ void warp_envelope_forward(const int8_t* xs, int iv, 
 // align_forward for one warp that holds the row, C nodes a lane, all its
 // state in registers: residues i = 1 .. jv of `xs` (L residues, length
 // model loop/move) with envelope [iv, jv] and Forward score `total`, over
-// kernel F's parked rows `pk`; `esm`, `tr`, `chain` as
-// warp_envelope_forward's, `g` the OA gates.  Writes out[1..21] and
-// coords[0..3]; the envelope's own Forward (out[0]) is
+// the parked rows `pk` (kernel F's, read-only: RO; or, RO false, the ones
+// this warp parked earlier in the launch, kernel K's); `esm`, `tr`,
+// `chain` as warp_envelope_forward's, `g` the OA gates.  Writes out[1..21]
+// and coords[0..3]; the envelope's own Forward (out[0]) is
 // warp_envelope_forward's.  No barrier.
-template <int C, typename Trans>
+template <int C, bool RO = true, typename Trans>
 __device__ __forceinline__ void warp_align_forward(const int8_t* xs, int L, float loop, float move,
                                                    int iv, int jv, float total,
                                                    const WarpParked& pk, const float* esm,
@@ -598,10 +739,11 @@ __device__ __forceinline__ void warp_align_forward(const int8_t* xs, int L, floa
             continue;
         }
         // residue i's parked rows, in flight while the Forward step runs
+        const int at = i - pk.origin;
         Bf16Lane<C> rowM, rowI;
-        rowM.load(pk.pM + static_cast<size_t>(i) * pk.width + base);
-        rowI.load(pk.pI + static_cast<size_t>(i) * pk.width + base);
-        const float blog = __ldg(pk.blog + i);
+        rowM.template load<RO>(pk.pM + static_cast<size_t>(at) * pk.width + base);
+        rowI.template load<RO>(pk.pI + static_cast<size_t>(at) * pk.width + base);
+        const float blog = fetch<RO>(pk.blog + at);
         const int k = i & 31;
         if (lane == k) {
             kept[0] = N;
@@ -676,13 +818,14 @@ __device__ __forceinline__ void warp_align_forward(const int8_t* xs, int L, floa
         if (k == 31 || i == jv - 1) {
             const int mine = i - k + lane;
             if (lane <= k && mine >= iv - 1) {
+                const int m = mine - pk.origin;
                 const float lsp = kept[3];
                 const float ppN =
-                    expf(logf(kept[0] + TINY) + lsp + log_loop + __ldg(pk.bNl + mine) - total);
+                    expf(logf(kept[0] + TINY) + lsp + log_loop + fetch<RO>(pk.bNl + m) - total);
                 const float ppJ =
-                    expf(logf(kept[1] + TINY) + lsp + log_loop + __ldg(pk.bJl + mine) - total);
+                    expf(logf(kept[1] + TINY) + lsp + log_loop + fetch<RO>(pk.bJl + m) - total);
                 const float ppC =
-                    expf(logf(kept[2] + TINY) + lsp + log_loop + __ldg(pk.bCl + mine) - total);
+                    expf(logf(kept[2] + TINY) + lsp + log_loop + fetch<RO>(pk.bCl + m) - total);
                 xpart += fminf(fmaxf(ppN + ppJ + ppC, 0.0f), 1.0f);
             }
         }

@@ -28,7 +28,9 @@
 // shuffle scan from the right whose slopes (products of tdd, fixed by the
 // profile) ChainScan holds, as chain_scan_right builds them: the mirror of
 // warp_forward_step.  U is computed once per profile.  No barrier.
-// Kernel F (up to 1,024 nodes) uses it.
+// Kernels E, F and J (up to 1,024 nodes) and K (128 and 256 nodes) use it;
+// warp_posterior_row, the Backward of a row with its posteriors, is the
+// whole Backward pass of kernels E and J.
 #pragma once
 
 #include "forward_step.cuh"
@@ -354,8 +356,8 @@ __device__ __forceinline__ float warp_backward_step(float (&bM)[C], float (&bI)[
 
 // The Forward trajectories of one row, one value a residue: the rescaled
 // N, B, J, C, E after each residue and the running log scale.  Kernel E
-// reads them from device memory (kernel D's output, no fE); kernel J keeps
-// them in shared memory.
+// reads them from device memory (kernel D's output, no fE); kernel J from
+// its own scratch slice (warp form) or shared memory (block form).
 struct ForwardTraj {
     const float *fN, *fB, *fJ, *fC, *fE, *flog;
 };
@@ -386,6 +388,69 @@ __device__ __forceinline__ void emit_posterior(const ForwardTraj& f, int o, floa
     mocc[o] = fminf(fmaxf(1.0f - (ppN + ppJ + ppC), 0.0f), 1.0f);
     pb[o] = f.fB[o] * bB * sc_cur;
     if (pe != nullptr) pe[o] = f.fE[o] * (0.5f * bJ + 0.5f * bC) * sc_cur;
+}
+
+// The Backward of one row by one warp, C nodes a lane, with its posteriors
+// (kernels E and J): from the initial row at o = L-1 down to o = 0 of the L
+// residues of `xs`, `esm` the lane's emission-odds rows of a
+// lane-interleaved table, `tr` its transitions, `nu` nm and U_{k+1},
+// `right` chain_scan_right's slopes; `f` the row's Forward trajectories
+// and `total` its Forward score.  Lane o mod 32 keeps residue o's bN, bB,
+// bJ, bC and log scale; once every 32 residues each lane runs
+// emit_posterior for its own residue, so that the trajectories at o and
+// o-1 are read, and mocc, pB and pE (where `pe` is not null) stored, as 32
+// consecutive floats a warp.  Then zeros from L to `stride`.
+template <int C, typename Trans, typename Nodes>
+__device__ __forceinline__ void warp_posterior_row(const int8_t* xs, int L, float loop, float move,
+                                                   float total, const float* esm,
+                                                   const Trans& tr, const Nodes& nu,
+                                                   const ChainScan& right, const ForwardTraj& f,
+                                                   float* mocc, float* pb, float* pe,
+                                                   int stride) {
+    constexpr int W = 32 * C;
+    const int lane = threadIdx.x & 31;
+    float bM[C], bI[C], e[C];
+    warp_backward_init<C>(bM, bI, tr, nu, move);
+    float bN = 0.0f, bB = 0.0f, bJ = 0.0f, bC = move, ls = 0.0f;
+    float kept[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};  // residue o's bN, bB, bJ, bC, ls
+                                                    // at lane o mod 32
+    ResidueStreamRev x(xs, L);
+    {
+        const int x0 = L > 0 ? x.next() : 0;  // residue L-1, the first step's
+#pragma unroll
+        for (int j = 0; j < C; ++j) e[j] = esm[x0 * W + j * 32];
+    }
+    for (int o = L - 1; o >= 0; --o) {
+        if (o < L - 1) {
+            // residue o's emissions, for the step to o - 1
+            const int xn = o > 0 ? x.next() : 0;
+            float en[C];
+#pragma unroll
+            for (int j = 0; j < C; ++j) en[j] = esm[xn * W + j * 32];
+            bB = warp_backward_step<C>(bM, bI, bN, bJ, bC, ls, e, tr, nu, right, loop, move);
+#pragma unroll
+            for (int j = 0; j < C; ++j) e[j] = en[j];
+        }
+        const int k = o & 31;
+        if (lane == k) {
+            kept[0] = bN;
+            kept[1] = bB;
+            kept[2] = bJ;
+            kept[3] = bC;
+            kept[4] = ls;
+        }
+        if (k == 0) {  // residues o .. min(o + 31, L - 1), one a lane
+            const int mine = o + lane;
+            if (mine < L)
+                emit_posterior(f, mine, loop, total, kept[0], kept[1], kept[2], kept[3], kept[4],
+                               mocc, pb, pe);
+        }
+    }
+    for (int o = L + lane; o < stride; o += 32) {
+        mocc[o] = 0.0f;
+        pb[o] = 0.0f;
+        if (pe != nullptr) pe[o] = 0.0f;
+    }
 }
 
 }  // namespace gecco

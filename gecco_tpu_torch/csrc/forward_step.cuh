@@ -23,7 +23,9 @@
 // across lanes, the delete chain is the lane-local composition and a
 // five-step shuffle scan of its offsets alone (the maps' slopes are
 // products of tdd, fixed by the profile: ChainScan holds them), E one
-// warp sum; no barrier.  Kernels C (up to 1,024 nodes) and H use it.
+// warp sum; no barrier.  Kernels C, D and J (up to 1,024 nodes), H, and G
+// and K (128 and 256 nodes) use it; warp_forward_traj, the Forward of a
+// row with its trajectories, is the whole Forward pass of kernels D and J.
 #pragma once
 
 #include "common.cuh"
@@ -251,13 +253,15 @@ __device__ __forceinline__ ChainScan chain_scan(const Trans& tr) {
 // `tr` their transitions; both are zero past the model length, so those
 // nodes stay zero (node M's delete state is the plain version's
 // tdd_{M-1} D_{M-1} + tmd_{M-1} M_{M-1}, zero in a Plan7 profile).  Every
-// lane updates N, B, J and C and rescales its nodes; returns the total.
+// lane updates N, B, J and C, rescales its nodes and leaves the rescaled
+// E = sum_k (M_k + D_k) in `E_scaled` (kernel J records it); returns the
+// total.
 template <int C, typename Trans>
 __device__ __forceinline__ float warp_forward_step(float (&Mv)[C], float (&Iv)[C], float (&Dv)[C],
                                                    float& N, float& B, float& J, float& Cs,
                                                    const float (&e)[C], const Trans& tr,
                                                    const ChainScan& chain, float loop,
-                                                   float move) {
+                                                   float move, float& E_scaled) {
     constexpr unsigned FULL = 0xffffffffu;
     const int lane = threadIdx.x & 31;
     float prev = __shfl_up_sync(FULL,
@@ -309,7 +313,78 @@ __device__ __forceinline__ float warp_forward_step(float (&Mv)[C], float (&Iv)[C
     B = Bn * inv;
     J = Jn * inv;
     Cs = Cn * inv;
+    E_scaled = E * inv;
     return total;
+}
+
+// The same step for the kernels that do not record E.
+template <int C, typename Trans>
+__device__ __forceinline__ float warp_forward_step(float (&Mv)[C], float (&Iv)[C], float (&Dv)[C],
+                                                   float& N, float& B, float& J, float& Cs,
+                                                   const float (&e)[C], const Trans& tr,
+                                                   const ChainScan& chain, float loop,
+                                                   float move) {
+    float unused;
+    return warp_forward_step<C>(Mv, Iv, Dv, N, B, J, Cs, e, tr, chain, loop, move, unused);
+}
+
+// The Forward of one row by one warp, C nodes a lane, with its special-state
+// trajectories (kernels D and J): the L residues of `xs` (length model loop,
+// move), `esm` the lane's emission-odds rows of a lane-interleaved table,
+// `tr` its transitions, `chain` their delete-chain slopes.  After residue i
+// it records the rescaled N, B, J, C and the running log scale, and with
+// NT = 6 the rescaled E, at traj[q * rows + i] for q = 0 .. NT-1.  Lane i
+// mod 32 keeps residue i's values, and the warp stores 32 consecutive
+// floats of each trajectory once every 32 residues (and the rest after the
+// last one).  Returns the score log(C * move + 1e-38) + ls, the same in
+// every lane (-1e30 for an empty sequence).  Nothing past L is written.
+template <int C, int NT, typename Trans>
+__device__ __forceinline__ float warp_forward_traj(const int8_t* xs, int L, float loop,
+                                                   float move, const float* esm,
+                                                   const Trans& tr, const ChainScan& chain,
+                                                   float* traj, size_t rows) {
+    static_assert(NT == 5 || NT == 6, "N, B, J, C, log scale and perhaps E");
+    constexpr int W = 32 * C;
+    const int lane = threadIdx.x & 31;
+    float Mv[C], Iv[C], Dv[C], e[C];
+#pragma unroll
+    for (int j = 0; j < C; ++j) Mv[j] = Iv[j] = Dv[j] = 0.0f;
+    float N = 1.0f, B = move, J = 0.0f, Cs = 0.0f, ls = 0.0f, E = 0.0f;
+    float kept[NT];  // residue i's values at lane i mod 32
+#pragma unroll
+    for (int q = 0; q < NT; ++q) kept[q] = 0.0f;
+    ResidueStream x(xs, L);
+    {
+        const int x0 = L > 0 ? x.next() : 0;
+#pragma unroll
+        for (int j = 0; j < C; ++j) e[j] = esm[x0 * W + j * 32];
+    }
+    for (int i = 0; i < L; ++i) {
+        // the next residue's emissions, one step ahead
+        const int xn = i + 1 < L ? x.next() : 0;
+        float en[C];
+#pragma unroll
+        for (int j = 0; j < C; ++j) en[j] = esm[xn * W + j * 32];
+        ls += logf(warp_forward_step<C>(Mv, Iv, Dv, N, B, J, Cs, e, tr, chain, loop, move, E));
+#pragma unroll
+        for (int j = 0; j < C; ++j) e[j] = en[j];
+        const int k = i & 31;
+        if (lane == k) {
+            kept[0] = N;
+            kept[1] = B;
+            kept[2] = J;
+            kept[3] = Cs;
+            kept[4] = ls;
+            if constexpr (NT == 6) kept[5] = E;
+        }
+        if (k == 31 || i == L - 1) {  // residues i - k .. i, one a lane
+            if (lane <= k) {
+#pragma unroll
+                for (int q = 0; q < NT; ++q) traj[q * rows + i - k + lane] = kept[q];
+            }
+        }
+    }
+    return L > 0 ? logf(Cs * move + 1e-38f) + ls : NEG;
 }
 
 }  // namespace gecco

@@ -28,8 +28,10 @@
 // the block stages the profile's 8 transition and 21 emission-odds rows
 // once, lane-interleaved, and one warp computes the delete chain's basis U
 // into a 30th row; at C <= 8 a lane keeps its transitions, nm and U in
-// registers.  Per residue: the residue from ResidueStreamRev, the next
-// step's emissions read one step ahead, warp_backward_step, no barrier.
+// registers.  A row is warp_posterior_row (backward_step.cuh, shared
+// with kernel J).  Per residue: the residue from ResidueStreamRev, the
+// next step's emissions read one step ahead, warp_backward_step, no
+// barrier.
 // The posterior is off that chain: lane o mod 32 keeps residue o's bN, bB,
 // bJ, bC and log scale, and once every 32 residues each lane runs
 // emit_posterior for its own residue, so that D's trajectories at o and
@@ -95,57 +97,13 @@ __device__ __forceinline__ void posterior_rows(int c, const Rows& t) {
     for (int r = threadIdx.x >> 5; r < t.count; r += blockDim.x >> 5) {
         const int row = t.first + r;
         const int s = t.a.seq[row];
-        const int L = t.a.lens[s];
-        const float loop = t.a.loops[s];
-        const float move = t.a.moves[s];
         const int slot = t.out_row[row];
         const size_t at = static_cast<size_t>(slot) * stride;
         const float* fN = t.traj + at;
         const ForwardTraj f{fN, fN + rows, fN + 2 * rows, fN + 3 * rows, nullptr, fN + 4 * rows};
-        float* mocc = t.post + at;
-        float* pb = t.post + rows + at;
-        const float total = t.score[slot];
-        float bM[C], bI[C], e[C];
-        warp_backward_init<C>(bM, bI, tr, nu, move);
-        float bN = 0.0f, bB = 0.0f, bJ = 0.0f, bC = move, ls = 0.0f;
-        float kept[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};  // residue o's bN, bB, bJ, bC, ls
-                                                        // at lane o mod 32
-        ResidueStreamRev x(t.a.xs + t.a.offsets[s], L);
-        {
-            const int x0 = L > 0 ? x.next() : 0;  // residue L-1, the first step's
-#pragma unroll
-            for (int j = 0; j < C; ++j) e[j] = esm[x0 * W + j * 32];
-        }
-        for (int o = L - 1; o >= 0; --o) {
-            if (o < L - 1) {
-                // residue o's emissions, for the step to o - 1
-                const int xn = o > 0 ? x.next() : 0;
-                float en[C];
-#pragma unroll
-                for (int j = 0; j < C; ++j) en[j] = esm[xn * W + j * 32];
-                bB = warp_backward_step<C>(bM, bI, bN, bJ, bC, ls, e, tr, nu, right, loop, move);
-#pragma unroll
-                for (int j = 0; j < C; ++j) e[j] = en[j];
-            }
-            const int k = o & 31;
-            if (lane == k) {
-                kept[0] = bN;
-                kept[1] = bB;
-                kept[2] = bJ;
-                kept[3] = bC;
-                kept[4] = ls;
-            }
-            if (k == 0) {  // residues o .. min(o + 31, L - 1), one a lane
-                const int mine = o + lane;
-                if (mine < L)
-                    emit_posterior(f, mine, loop, total, kept[0], kept[1], kept[2], kept[3],
-                                   kept[4], mocc, pb, nullptr);
-            }
-        }
-        for (int o = L + lane; o < stride; o += 32) {
-            mocc[o] = 0.0f;
-            pb[o] = 0.0f;
-        }
+        warp_posterior_row<C>(t.a.xs + t.a.offsets[s], t.a.lens[s], t.a.loops[s], t.a.moves[s],
+                              t.score[slot], esm, tr, nu, right, f, t.post + at,
+                              t.post + rows + at, nullptr, stride);
     }
 }
 

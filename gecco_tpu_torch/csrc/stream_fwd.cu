@@ -88,52 +88,15 @@ __device__ __forceinline__ void posterior_rows(int c, const Rows& t) {
         const int row = t.first + r;
         const int s = t.a.seq[row];
         const int L = t.a.lens[s];
-        const float loop = t.a.loops[s];
-        const float move = t.a.moves[s];
         const int slot = t.out_row[row];
         float* out = t.traj + static_cast<size_t>(slot) * stride;  // trajectory q at q * rows
-        float Mv[C], Iv[C], Dv[C], e[C];
-#pragma unroll
-        for (int j = 0; j < C; ++j) Mv[j] = Iv[j] = Dv[j] = 0.0f;
-        float N = 1.0f, B = move, J = 0.0f, Cs = 0.0f, ls = 0.0f;
-        float kept[5];  // residue i's N, B, J, C, ls at lane i mod 32
-#pragma unroll
-        for (int q = 0; q < 5; ++q) kept[q] = 0.0f;
-        ResidueStream x(t.a.xs + t.a.offsets[s], L);
-        {
-            const int x0 = L > 0 ? x.next() : 0;
-#pragma unroll
-            for (int j = 0; j < C; ++j) e[j] = esm[x0 * W + j * 32];
-        }
-        for (int i = 0; i < L; ++i) {
-            // the next residue's emissions, one step ahead
-            const int xn = i + 1 < L ? x.next() : 0;
-            float en[C];
-#pragma unroll
-            for (int j = 0; j < C; ++j) en[j] = esm[xn * W + j * 32];
-            ls += logf(warp_forward_step<C>(Mv, Iv, Dv, N, B, J, Cs, e, tr, chain, loop, move));
-#pragma unroll
-            for (int j = 0; j < C; ++j) e[j] = en[j];
-            const int k = i & 31;
-            if (lane == k) {
-                kept[0] = N;
-                kept[1] = B;
-                kept[2] = J;
-                kept[3] = Cs;
-                kept[4] = ls;
-            }
-            if (k == 31 || i == L - 1) {  // residues i - k .. i, one a lane
-                if (lane <= k) {
-#pragma unroll
-                    for (int q = 0; q < 5; ++q) out[q * rows + i - k + lane] = kept[q];
-                }
-            }
-        }
+        const float score = warp_forward_traj<C, 5>(t.a.xs + t.a.offsets[s], L, t.a.loops[s],
+                                                    t.a.moves[s], esm, tr, chain, out, rows);
         for (int i = L + lane; i < stride; i += 32) {
 #pragma unroll
             for (int q = 0; q < 5; ++q) out[q * rows + i] = 0.0f;
         }
-        if (lane == 0) t.score[slot] = L > 0 ? logf(Cs * move + 1e-38f) + ls : NEG;
+        if (lane == 0) t.score[slot] = score;
     }
 }
 

@@ -66,14 +66,16 @@ _N_ENVS = 4
 #: most rows of one profile that a block of kernel C takes at widths 128
 #: to 1,024 (its warps take them in turn; ``hmm.kernels.pair_blocks``)
 FORWARD_BLOCK_ROWS = 16
-#: most rows of one profile that a block of kernels D, E and F takes in
+#: most rows of one profile that a block of kernels D, E, F and J takes in
 #: each width class, one a warp (``stream_fwd.cu``'s ``D_WARPS``,
-#: ``stream_bwd.cu``'s ``E_WARPS``, ``align_bwd.cu``'s ``F_WARPS``): a
-#: launch of few rows a profile then runs every row side by side.  The
-#: classes above 1,024 nodes take a block a row.
+#: ``stream_bwd.cu``'s ``E_WARPS``, ``align_bwd.cu``'s ``F_WARPS``,
+#: ``pair_posterior.cu``'s ``J_WARPS``): a launch of few rows a profile
+#: then runs every row side by side.  The classes above 1,024 nodes take a
+#: block a row.
 DOMAIN_BLOCK_ROWS = {128: 4, 256: 4, 512: 8, 1024: 8, 2048: 1, 4096: 1}
-#: the same for kernel G (``align_fwd.cu``'s ``G_WARPS``), which takes a
-#: block a row from 512 nodes up
+#: the same for kernels G and K (``align_fwd.cu``'s ``G_WARPS``,
+#: ``pair_align.cu``'s ``K_WARPS``), which take a block a row from 512
+#: nodes up
 ALIGN_FWD_BLOCK_ROWS = {128: 4, 256: 4, 512: 1, 1024: 1, 2048: 1, 4096: 1}
 
 
@@ -169,7 +171,7 @@ def forward_pairs_plain(pack: SeqPack, bank: TorchBank, seq_idx, prof_idx,
 # ---------------------------------------------------------------------------
 
 class _Rows:
-    """The (sequence, profile) rows of one call of kernels D–G.
+    """The (sequence, profile) rows of one call of kernels D–G, J or K.
 
     ``width`` is the call's node width, the widest class among the rows
     (kernels J and K launch at it, F's planes take it); ``stride`` its
@@ -208,16 +210,9 @@ class _Rows:
 
     # -- kernel launch ------------------------------------------------------
 
-    def launch(self, fn_name: str, counter: str, *tail: torch.Tensor) -> None:
-        """Run kernel ``fn_name`` (J or K) over the rows, a block a row at the
-        call's width; ``tail`` are its array arguments."""
-        launch_rows(fn_name, counter, self.pack, self.bank, self.seq.to(torch.int32),
-                    self.prof.to(torch.int32), self.width, *tail, log_space=False,
-                    stride=self.stride)
-
     def launches(self, fn_name: str, counter: str, *tail,
                  rows_per_block=DOMAIN_BLOCK_ROWS) -> Dict[int, functools.partial]:
-        """Kernel ``fn_name``'s launches over the rows (kernels D–G),
+        """Kernel ``fn_name``'s launches over the rows (kernels D–G, J, K),
         prepared on the device and keyed by the width each runs at: one
         per width class up to ``DENSE_WARP_WIDTH`` nodes, its rows cut into
         blocks of at most ``rows_per_block`` rows of one profile
@@ -820,9 +815,9 @@ class DeviceDomains:
     #: the alignment stage's bfloat16 planes, or the posterior stage's
     #: outputs and the envelope finder's temporaries
     BYTES_BUDGET = 1 << 30
-    #: bytes per row and residue of the posterior stage (7 float32 values)
-    #: and of the ~12 int64/float32 ``[n, stride]`` temporaries of
-    #: :func:`envelopes`
+    #: bytes per row and residue of the posterior stage (7 float32 values,
+    #: 8 with kernel J's trajectory scratch) and of the ~12 int64/float32
+    #: ``[n, stride]`` temporaries of :func:`envelopes`
     POSTERIOR_BYTES = 128
 
     def __init__(self, bank: TorchBank, profiles, backend: str = "cuda"):

@@ -17,7 +17,8 @@ import torch
 from gecco_tpu_torch import _build
 from gecco_tpu_torch.hmm.bank import NEG, TorchBank
 from gecco_tpu_torch.hmm.domains import (
-    PairDomains, pair_align, pair_align_plain, pair_posterior, pair_posterior_plain)
+    _SMEM_CAP, PairDomains, pair_align, pair_align_plain, pair_posterior, pair_posterior_plain,
+    pair_posterior_smem)
 from gecco_tpu_torch.hmm.kernels import (
     DENSE_TILE, VITERBI_BLOCK_ROWS, SeqPack, dense_scores, dense_scores_plain, msv_filter,
     msv_filter_plain, msv_tile, ssv_filter, ssv_filter_plain, viterbi_pairs,
@@ -680,6 +681,124 @@ def test_pair_align_kernel_matches_plain(workload, domain_rows):
         _close(out, want_out, 1e-3)
         torch.testing.assert_close(coords, want_coords, atol=0, rtol=0)
     assert _build.launches["pair_align"] == before + len(domain_rows)
+
+
+def _edge_envelopes(pack, s_idx, seed):
+    """Envelopes [1, 1], [L, L], [1, L], iv = jv and others in turn, one a
+    row (every row non-empty)."""
+    rng = numpy.random.default_rng(seed)
+    L = pack.lens_host[s_idx].astype(numpy.int64)
+    iv = 1 + (rng.random(len(L)) * L).astype(numpy.int64)
+    jv = iv + (rng.random(len(L)) * (L - iv + 1)).astype(numpy.int64)
+    kind = numpy.arange(len(L)) % 5
+    iv[kind == 0], jv[kind == 0] = 1, 1
+    iv[kind == 1], jv[kind == 1] = L[kind == 1], L[kind == 1]
+    iv[kind == 2], jv[kind == 2] = 1, L[kind == 2]
+    jv[kind == 3] = iv[kind == 3]
+    return iv, jv
+
+
+def _pair_posterior_rows(pack, bank, s_idx, p_idx):
+    """The rows that ``PairDomains`` gives kernel J: those whose block form
+    fits its shared memory (the 4,096-residue sequence against the
+    4,096-node class does not)."""
+    keep = numpy.array([pair_posterior_smem(int(bank.class_of[p]), int(pack.lens_host[s]))
+                        <= _SMEM_CAP for s, p in zip(s_idx, p_idx)], dtype=bool)
+    return s_idx[keep], p_idx[keep]
+
+
+def _check_pair_posterior(pack, bank, s_idx, p_idx):
+    """Kernel J against its plain version on rows ``(s_idx, p_idx)``:
+    score within 1e-3 nats, mocc, pB and pE within 1e-4 and zero past each
+    row's length, an empty sequence scoring -1e30; returns the largest
+    differences (score, posteriors)."""
+    got = pair_posterior(pack, bank, s_idx, p_idx)
+    torch.cuda.synchronize()
+    want = pair_posterior_plain(pack, bank, s_idx, p_idx)
+    _close(got[0], want[0], 1e-3)
+    post, want_post = torch.stack(got[1:]), torch.stack(want[1:])
+    _close(post, want_post, 1e-4)
+    assert (post[:, _past_length(pack, s_idx, post.shape[2])] == 0).all()
+    assert (got[0][torch.as_tensor(pack.lens_host[s_idx] == 0, device=pack.device)]
+            == NEG).all()
+    return float((got[0] - want[0]).abs().max()), float((post - want_post).abs().max())
+
+
+def test_pair_posterior_kernel_edges(domain_edge_rows):
+    """Kernel J against its plain version on the node bank's rows (models
+    at 32 k - 1, 32 k and 32 k + 1 nodes, more rows of a profile than a
+    block, interleaved profiles, an empty sequence, 4,096 residues against
+    the 128-node class), the rows ``PairDomains`` gives it: one launch a
+    class.  The largest differences are printed."""
+    pack, bank, groups = domain_edge_rows
+    errs = [0.0, 0.0]
+    for s_idx, p_idx in groups:
+        s_idx, p_idx = _pair_posterior_rows(pack, bank, s_idx, p_idx)
+        before = _build.launches["pair_posterior"]
+        errs = [max(a, b) for a, b in zip(errs, _check_pair_posterior(pack, bank, s_idx, p_idx))]
+        assert _build.launches["pair_posterior"] == before + 1
+    print(f"kernel J on the node bank ({len(groups)} classes): largest difference "
+          f"{errs[0]!r} nats (score), {errs[1]!r} (mocc, pB, pE)")
+
+
+def _check_pair_align(pack, bank, s_idx, p_idx, seed):
+    """Kernel K against its plain version on the non-empty rows ``(s_idx,
+    p_idx)`` with :func:`_edge_envelopes`: the envelope score and null2
+    log-ratios within 1e-3 nats, the coordinates equal; returns the
+    largest differences (envelope score, null2)."""
+    iv, jv = _edge_envelopes(pack, s_idx, seed)
+    _traj, score = posterior_fwd_plain(pack, bank, s_idx, p_idx)
+    out, coords = pair_align(pack, bank, s_idx, p_idx, iv, jv, score)
+    torch.cuda.synchronize()
+    want_out, want_coords = pair_align_plain(pack, bank, s_idx, p_idx, iv, jv, score)
+    _close(out, want_out, 1e-3)
+    assert torch.equal(coords, want_coords)
+    return (float((out[:, 0] - want_out[:, 0]).abs().max()),
+            float((out[:, 1:] - want_out[:, 1:]).abs().max()))
+
+
+def test_pair_align_kernel_edges(domain_edge_rows):
+    """Kernel K against its plain version on the non-empty rows of
+    ``test_posterior_fwd_kernel_edges`` (the 4,096-residue sequence among
+    them), on plain kernel D's scores: one launch a class; envelopes [1, 1],
+    [L, L], [1, L], iv = jv and others in turn.  The largest differences
+    are printed."""
+    pack, bank, groups = domain_edge_rows
+    errs = [0.0, 0.0]
+    for s_idx, p_idx in groups:
+        keep = pack.lens_host[s_idx] > 0
+        before = _build.launches["pair_align"]
+        errs = [max(a, b) for a, b in zip(errs, _check_pair_align(
+            pack, bank, s_idx[keep], p_idx[keep], 13))]
+        assert _build.launches["pair_align"] == before + 1
+    print(f"kernel K on the node bank ({len(groups)} classes): largest difference "
+          f"{errs[0]!r} nats (envelope score), {errs[1]!r} (null2 log-ratios)")
+
+
+@pytest.mark.parametrize("kernel", ["pair_posterior", "pair_align"])
+def test_pair_kernels_mixed_shuffled(domain_edge_rows, kernel):
+    """Kernels J and K over the node bank's rows of every class in one
+    call, in a shuffled order, so that each class's launch takes its rows
+    in block order and writes each at its slot in the caller's order: one
+    launch a class up to 1,024 nodes and one for the classes above, the
+    outputs equal to the plain version's.  (Without the 4,096-residue
+    sequence: kernel J's block form sizes its shared memory by the call's
+    longest row.)"""
+    pack, bank, groups = domain_edge_rows
+    s_idx = numpy.concatenate([g[0] for g in groups])
+    p_idx = numpy.concatenate([g[1] for g in groups])
+    keep = pack.lens_host[s_idx] < 4096
+    if kernel == "pair_align":
+        keep &= pack.lens_host[s_idx] > 0
+    order = numpy.random.default_rng(21).permutation(int(keep.sum()))
+    s_idx, p_idx = s_idx[keep][order], p_idx[keep][order]
+    assert len(set(bank.class_of[p_idx[:8]].tolist())) > 1
+    before = _build.launches[kernel]
+    if kernel == "pair_posterior":
+        _check_pair_posterior(pack, bank, s_idx, p_idx)
+    else:
+        _check_pair_align(pack, bank, s_idx, p_idx, 17)
+    assert _build.launches[kernel] == before + 5
 
 
 def test_pair_domains_cuda_matches_torch_and_stream(workload):

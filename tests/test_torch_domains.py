@@ -26,10 +26,13 @@ from gecco_tpu.hmm.stream import StreamBank
 from gecco_tpu.hmm.stream import StreamDomains as JaxStreamDomains
 from gecco_tpu.hmm.stream import (
     _jit_envelopes, _stream_align_bwd, _stream_align_fwd, _stream_bwd, _stream_fwd)
-from gecco_tpu.hmm.synthetic import plant_domain, synthetic_profiles, synthetic_proteins
+from gecco_tpu.hmm.synthetic import (
+    pfam_shaped_profiles, plant_domain, synthetic_profiles, synthetic_proteins)
 
 from gecco_tpu_torch.hmm import stream
 from gecco_tpu_torch.hmm.bank import TorchBank
+from gecco_tpu_torch.hmm.domains import (
+    pair_align_launches, pair_align_plain, pair_posterior_launches, pair_posterior_plain)
 from gecco_tpu_torch.hmm.kernels import SeqPack
 from gecco_tpu_torch.hmm.profile import profiles_from_arrays
 from gecco_tpu_torch.hmm.stream import (
@@ -262,6 +265,54 @@ def test_stream_domains_match_jax_stream_domains(multidomain):
             assert a.bitscore == pytest.approx(b.bitscore, abs=5e-2)
 
 
+#: protein 2104 of ``hmm.synthetic.bench_proteins()`` (``chip_smoke.py``'s
+#: workload: a gene of ``synthetic_genome(3230, seed=4)`` cut to 512
+#: residues), held as a literal, and the profile of
+#: ``pfam_shaped_profiles(2766, seed=0)`` it meets in the ``max_filter``
+#: search (92 nodes)
+NEAR_TIE_PROTEIN = (
+    "MQAIARDPSVAGIPYIWPHVAGATEAPGTWPWHWRCGAEFEYGSHYGKWHFGKNHTFLDTGQKTQMDMSTLWILAQNQWNLEERK"
+    "ILSDRELPQAGIAAYKDYVYGPYPWWWYPSGCRIGRARYSIPNGNMLFCNSIEMAMKFAKNRQESEAEAPLTESFLAESCIKI"
+    "LASLNALWSNCWLITCVIIFGNKRFPDRYMHNTGALSNQAVPFHTVARKRAPWVWGPIDTMRQNGRSESKWADYVLSKGTKQDD"
+    "GDRKANWPVKKLNRLARIAMAKVEYPSRQADGEPQDVNKPQSKSAILFENTALNEIAHANDSLTGWYX")
+NEAR_TIE_PROFILE = 1539
+
+
+def test_stream_domains_near_tie_matches_jax_and_engine():
+    """The ``max_filter`` pair whose domain count differed between two
+    builds of kernel E on an H100 (one envelope more, [27, 38], after E's
+    warp redesign): the float64 engine's peak match occupancy over residues
+    21-45 is 4.2e-6 below the region threshold RT1, within float32
+    rounding of it, so a kernel may land on either side.  The port's
+    ``StreamDomains`` on the CPU gives the envelopes and coordinates of
+    JAX's ``StreamDomains`` (Pallas in interpret mode) and of the float64
+    engine: one domain, [105, 144]."""
+    profile = pfam_shaped_profiles(2766, seed=0)[NEAR_TIE_PROFILE]
+    x = numpy.array(["ACDEFGHIKLMNPQRSTVWYX".index(c) for c in NEAR_TIE_PROTEIN],
+                    dtype=numpy.int32)
+    assert (len(x), profile.M) == (320, 92)
+    fwd, bwd = engine.forward(profile, x), engine.backward(profile, x)
+    mocc = numpy.asarray(engine.posterior_decode(profile, x, fwd, bwd).mocc[1 : len(x) + 1])
+    assert engine.RT1 - 1e-5 < mocc[20:45].max() < engine.RT1
+
+    def coords(doms):
+        return [(d.ienv, d.jenv, d.target_from, d.target_to, d.hmm_from, d.hmm_to)
+                for d in doms]
+
+    want = coords(engine.define_domains(profile, x))
+    assert want == [(105, 144, 105, 144, 37, 76)]
+    jax_doms = JaxStreamDomains(ProfileBank.build([profile]), [profile]).define(
+        [x], [(0, 0)], interpret=True)
+    assert coords(jax_doms[(0, 0)]) == want
+    port = _port([profile])
+    domains = StreamDomains(TorchBank.build(port, "cpu"), port)
+    got = domains.define([x], [(0, 0)], SeqPack([x], "cpu"))
+    assert domains.host_pairs == 0
+    assert coords(got[(0, 0)]) == want
+    for a, b in zip(got[(0, 0)], jax_doms[(0, 0)]):
+        assert a.bitscore == pytest.approx(b.bitscore, abs=5e-2)
+
+
 @pytest.fixture(scope="module")
 def edge_cases():
     """A 20-node profile planted nine times (more regions than slots), a
@@ -390,20 +441,26 @@ _SCHEDULED = {
     "posterior_bwd": (posterior_bwd_launches, posterior_bwd_plain),
     "align_bwd": (align_bwd_launches, align_bwd_plain),
     "align_fwd": (align_fwd_launches, align_fwd_plain),
+    "pair_posterior": (pair_posterior_launches, pair_posterior_plain),
+    "pair_align": (pair_align_launches, pair_align_plain),
 }
+#: the kernels that take a block a row from 512 nodes up
+_ALIGN_FORWARD = ("align_fwd", "pair_align")
 
 
 def _inputs(kernel, pack, bank, seq, prof, env):
     """A kernel's own inputs for rows ``(seq, prof)``, from the plain
     versions of the kernels before it: kernel D's trajectories and scores
-    for E; kernel F's planes, each row's envelope (``env[seq]``) and its
-    Forward score for G."""
+    for E; kernel F's planes (for G), each row's envelope (``env[seq]``)
+    and its Forward score for G and K."""
     if kernel == "posterior_bwd":
         return posterior_fwd_plain(pack, bank, seq, prof)
-    if kernel == "align_fwd":
-        planes, logs = align_bwd_plain(pack, bank, seq, prof)
+    if kernel in _ALIGN_FORWARD:
         iv, jv = (torch.as_tensor(env[seq, k], dtype=torch.int32) for k in (0, 1))
-        return planes, logs, iv, jv, posterior_fwd_plain(pack, bank, seq, prof)[1]
+        total = posterior_fwd_plain(pack, bank, seq, prof)[1]
+        if kernel == "pair_align":
+            return iv, jv, total
+        return (*align_bwd_plain(pack, bank, seq, prof), iv, jv, total)
     return ()
 
 
@@ -418,30 +475,32 @@ def _plain_rows(kernel, pack, bank, seq, prof, width, inputs=()):
     return wide, logs
 
 
-@pytest.mark.parametrize("kernel", ["posterior_fwd", "posterior_bwd", "align_bwd", "align_fwd"])
+@pytest.mark.parametrize("kernel", list(_SCHEDULED))
 def test_domain_launches_schedule(schedule_rows, monkeypatch, kernel):
-    """The host side of kernels D-G: one launch per width class up to
-    1,024 nodes (so one per group of ``StreamDomains``, which are of one
-    class), whose block table covers every row of the class once, each
-    block within one profile and at most ``DOMAIN_BLOCK_ROWS`` rows
-    (``ALIGN_FWD_BLOCK_ROWS`` for G), and one launch (a block a row) for the
-    classes above; every row goes to its own output slot, and kernels E and
-    G take their inputs there.  Each launch is stood in for by the plain
+    """The host side of kernels D-G, J and K: one launch per width class
+    up to 1,024 nodes (so one per group of ``StreamDomains`` and
+    ``PairDomains``, which are of one class), whose block table covers
+    every row of the class once, each block within one profile and at most
+    ``DOMAIN_BLOCK_ROWS`` rows (``ALIGN_FWD_BLOCK_ROWS`` for G and K), and
+    one launch (a block a row) for the classes above; every row goes to
+    its own output slot, and kernels E, G and K take their inputs there
+    (J and K their scratch too).  Each launch is stood in for by the plain
     version over its blocks' rows (the CUDA launch needs a card), given
     the inputs at the slots it is given and written at them; the outputs
     equal the plain version's over all rows, whose profiles interleave.
-    G's rows are the non-empty ones, each with an envelope."""
+    G's and K's rows are the non-empty ones, each with an envelope."""
     pack, bank, s_idx, p_idx = schedule_rows
     prepare = _SCHEDULED[kernel][0]
-    caps = ALIGN_FWD_BLOCK_ROWS if kernel == "align_fwd" else DOMAIN_BLOCK_ROWS
+    caps = ALIGN_FWD_BLOCK_ROWS if kernel in _ALIGN_FORWARD else DOMAIN_BLOCK_ROWS
     lens = pack.lens_host
     rng = numpy.random.default_rng(12)
     iv = 1 + (rng.random(pack.S) * lens).astype(numpy.int64)
     env = numpy.stack([iv, iv + (rng.random(pack.S) * (lens - iv + 1)).astype(numpy.int64)], 1)
-    if kernel == "align_fwd":
+    if kernel in _ALIGN_FORWARD:
         keep = lens[s_idx] > 0
         s_idx, p_idx = s_idx[keep], p_idx[keep]
-    n_in = {"posterior_fwd": 0, "posterior_bwd": 2, "align_bwd": 0, "align_fwd": 5}[kernel]
+    n_in = {"posterior_fwd": 0, "posterior_bwd": 2, "align_bwd": 0, "align_fwd": 5,
+            "pair_posterior": 0, "pair_align": 3}[kernel]
     seen = []
 
     def launch_rows(fn_name, counter, pack_, bank_, seq, prof, width, table, n_blocks, out_row,
@@ -449,10 +508,21 @@ def test_domain_launches_schedule(schedule_rows, monkeypatch, kernel):
         assert (fn_name, counter, log_space) == (f"gecco_{kernel}", kernel, False)
         assert n_out == len(s_idx) and stride == max(1, int(pack.lens_host[s_idx].max()))
         plane_width = 0
-        if kernel in ("align_bwd", "align_fwd"):
+        if kernel in ("align_bwd", "align_fwd", "pair_align"):
             plane_width, *tail = tail
             assert plane_width == 4096
+        if kernel == "pair_posterior":   # emit_pe; the warp form's trajectory scratch
+            n_post, traj, *tail = tail
+            assert n_post == 3 and traj.shape == (6, n_out, stride)
         inputs, outputs = tail[:n_in], tail[n_in:]
+        if kernel == "pair_posterior":
+            score, post = outputs
+            outputs = (score, *post)
+        if kernel == "pair_align":       # the longest envelope, the parked rows' scratch
+            env_stride, planes, logs, *outputs = outputs
+            longest = int((env[s_idx, 1] - env[s_idx, 0]).max()) + 1
+            assert env_stride == longest and planes.shape == (2, n_out, longest, plane_width)
+            assert logs.shape == (4, n_out, longest)
         classes = set(bank_.class_of[prof.numpy()].tolist())
         if width <= 1024:
             assert classes == {width} and table.shape == (n_blocks, 2)
@@ -471,8 +541,11 @@ def test_domain_launches_schedule(schedule_rows, monkeypatch, kernel):
                               plane_width,
                               [t[slots] if t.dim() == 1 else t[:, slots] for t in inputs])
             for out, value in zip(outputs, got):
-                if kernel == "align_fwd" or value.dim() == 1:
+                if kernel in _ALIGN_FORWARD or value.dim() == 1:
                     out[slots] = value
+                elif value.dim() == 2:   # [rows, residues]
+                    out[slots] = 0
+                    out[slots, : value.shape[1]] = value
                 else:
                     out[:, slots] = 0
                     out[:, slots, : value.shape[2]] = value
