@@ -82,7 +82,23 @@ Phases (each prints its wall seconds, each ends in a device sync):
    their plain versions, timed per width class between CUDA events;
 7. CLI: ``gecco-tpu-torch run`` on the genome with the calibrated bank
    written as ``.h3m`` (accessions renamed to the embedded model's
-   Pfam whitelist).
+   Pfam whitelist);
+8. train: ``ClusterCRF.fit`` on the card at the shipped model's width and
+   settings (``gecco_tpu_torch/data/crf_model.npz``: protein features,
+   windows of 20, c1 = 0.4, c2 = 0, L-BFGS/OWL-QN, 2,659 of its 11,064
+   candidate features selected) over a synthetic corpus of 240 contigs x
+   500 genes named from those candidates with planted cluster runs: its
+   windows, vocabulary, host seconds (selection, instances, index), fit
+   seconds, evaluations, device ms per evaluation (CUDA events, and the
+   profiler's busy ms), peak device memory, objective and non-zero
+   weights, and 24 held-out contigs predicted on the card (8a); the same
+   strictly convex fit (c1 = 0, c2 = 0.05) of a cut corpus on the card and
+   on the CPU: the objective and gradient at the same points, Adam's fits
+   within stated bounds, L-BFGS's gaps beside those of a second window
+   order on the card (8b); ``annotate``,
+   ``predict`` (giving phase 7's clusters table), ``train``, ``predict
+   --model``, ``cv`` and ``convert`` on the card, from phase 7's genome
+   and output (8c).
 
 The searches of phases 3, 4 and 5 and the domain definition of phase 6
 run under ``torch.profiler`` (device activity only), which gives each
@@ -209,6 +225,28 @@ PLANES = 29
 #: seconds between opening a measured profiler trace and the work it
 #: measures (:func:`device_trace`)
 TRACE_LEAD_S = 1.0
+#: phase 8's training corpus: contigs of genes (about 40 genomes of the
+#: bench genome's size), contigs held out for prediction, names of the
+#: planted runs' domains, and the cut corpus of the card-against-CPU fits
+TRAIN_CONTIGS, TRAIN_GENES, HELD_OUT = 240, 500, 24
+CLUSTER_POOL = 500
+CUT_CONTIGS, CUT_GENES = 24, 200
+TRAIN_SEED = 12
+#: evaluations of the objective and gradient traced by the profiler
+EVALUATIONS_TRACED = 5
+#: two float32 fits of one strictly convex objective (c1 = 0, c2 = 0.05),
+#: on the card and on the CPU, whose sums run in other orders: flat
+#: directions stop where the float32 objective stops resolving
+#: (``tests/test_train.py`` bounds two optimizers on one optimum by 0.25 in
+#: the weights).  Required of Adam's 300 steps; the copied L-BFGS stops
+#: short of the optimum on the cut corpus, at a point that the order of
+#: the sums alone moves by more, so its gaps are printed
+FIT_OBJECTIVE_RTOL, FIT_WEIGHT_ATOL, FIT_PROBABILITY_ATOL = 1e-4, 0.25, 2e-2
+#: the objective and its gradient on the card against the CPU at one point
+#: (``tests/test_torch_train.py`` holds ``nll`` to a float64 forward
+#: algorithm at 1e-5 relative, and its gradient at 1e-4 of its largest
+#: magnitude)
+EVALUATION_RTOL = 1e-4
 
 
 def require(condition, message):
@@ -1355,32 +1393,392 @@ def pair_kernels_alone(pack, bank, recorded, repeats):
 
 
 def phase_cli(device, state):
+    """``gecco-tpu-torch run`` on the genome, in ``state["workdir"]``, whose
+    inputs and output phase 8 takes up."""
     from gecco_tpu_torch.cli import main
     from gecco_tpu_torch.hmm.synthetic import write_library
 
-    with tempfile.TemporaryDirectory() as tmp:
-        bank_path = os.path.join(tmp, "bank.h3m")
-        write_library(bank_path, state["profiles"])
-        genome_path = os.path.join(tmp, "genome.fna")
-        with open(genome_path, "w") as f:
-            f.write(">genome\n")
-            genome = state["genome"]
-            for i in range(0, len(genome), 80):
-                f.write(genome[i : i + 80] + "\n")
-        out = os.path.join(tmp, "out")
+    tmp = state["workdir"]
+    bank_path = os.path.join(tmp, "bank.h3m")
+    write_library(bank_path, state["profiles"])
+    genome_path = os.path.join(tmp, "genome.fna")
+    with open(genome_path, "w") as f:
+        f.write(">genome\n")
+        genome = state["genome"]
+        for i in range(0, len(genome), 80):
+            f.write(genome[i : i + 80] + "\n")
+    out = os.path.join(tmp, "run")
+    t0 = time.perf_counter()
+    code = main(["run", "-g", genome_path, "--hmm", bank_path, "-o", out,
+                 "--device", device.type, "--force-tsv"])
+    print(f"# cli run: exit {code} in {time.perf_counter() - t0:.3f} s", flush=True)
+    require(code == 0, f"gecco-tpu-torch run exited {code}")
+    counts = {}
+    for kind in ("genes", "features", "clusters"):
+        path = os.path.join(out, f"genome.{kind}.tsv")
+        require(os.path.exists(path), f"missing {path}")
+        with open(path) as f:
+            counts[kind] = sum(1 for _ in f) - 1
+    print(f"# cli tables: {counts['genes']} genes, {counts['features']} domains, "
+          f"{counts['clusters']} clusters", flush=True)
+    state.update(genome_path=genome_path, bank_path=bank_path, run_dir=out)
+
+
+# --- phase 8: CRF training --------------------------------------------------------
+
+def training_corpus(names, pool, contigs, genes_per_contig, seed):
+    """``contigs`` contigs of ``genes_per_contig`` genes, made from ``seed``:
+    each gene carries 0-4 domains named from ``names`` outside ``pool``,
+    except in one to three planted runs of 10-40 genes a contig, whose
+    genes carry 1-4 domains named from ``pool`` (``names`` indices); every
+    domain and gene is labelled 1 inside a run, 0 outside
+    (``tests/test_train.py``'s ``_synthetic_genes`` at scale)."""
+    from gecco_tpu_torch.model import Domain, Gene, Protein, Strand
+    from gecco_tpu_torch.seq import Seq, SeqRecord
+
+    rng = numpy.random.default_rng(seed)
+    background = numpy.setdiff1d(numpy.arange(len(names)), pool)
+    genes = []
+    for c in range(contigs):
+        source = SeqRecord(id=f"contig{seed}_{c:04}", seq=Seq(""))
+        inside = numpy.zeros(genes_per_contig, dtype=bool)
+        for _ in range(int(rng.integers(1, 4))):
+            start = int(rng.integers(0, genes_per_contig - 40))
+            inside[start : start + int(rng.integers(10, 41))] = True
+        counts = rng.integers(0, 5, size=genes_per_contig)
+        counts[inside] = rng.integers(1, 5, size=int(inside.sum()))
+        drawn = numpy.where(
+            inside[:, None], pool[rng.integers(0, len(pool), size=(genes_per_contig, 4))],
+            background[rng.integers(0, len(background), size=(genes_per_contig, 4))])
+        for i in range(genes_per_contig):
+            p = 1.0 if inside[i] else 0.0
+            domains = [Domain(names[k], 1 + 100 * d, 90 + 100 * d, "Pfam", 1e-20, 1e-22,
+                              probability=p)
+                       for d, k in enumerate(drawn[i, : counts[i]])]
+            protein = Protein(f"{source.id}_{i + 1}", Seq("M"), domains)
+            genes.append(Gene(source, 1000 * i + 1, 1000 * i + 900, Strand.Coding, protein,
+                              _probability=p))
+    return genes
+
+
+def stripped(genes):
+    """``genes`` with the labels taken off, as a prediction sees them."""
+    from gecco_tpu_torch.model import Gene
+
+    return [Gene(g.source, g.start, g.end, g.strand, g.protein.with_domains(
+        [d.with_probability(None) for d in g.protein.domains]), dict(g.qualifiers), None)
+        for g in genes]
+
+
+@contextlib.contextmanager
+def fit_probes():
+    """Wrap the stages of a fit: the Fisher selection, ``_build_instances``
+    and each evaluation of the objective and gradient (host seconds, and
+    device ms between CUDA events recorded before its upload and after its
+    download).  Yields the record, which also keeps the last evaluation's
+    arguments."""
+    from gecco_tpu_torch.crf import select, train
+
+    record = {"select_s": 0.0, "instances_s": 0.0, "evaluations": 0, "evaluation_s": 0.0,
+              "device_ms": 0.0, "first_evaluation": None, "instances_end": None, "args": None}
+    significance, instances, value_and_grad = (
+        select.fisher_significance, train._build_instances, train._value_and_grad)
+
+    def timed_significance(*args, **kwargs):
         t0 = time.perf_counter()
-        code = main(["run", "-g", genome_path, "--hmm", bank_path, "-o", out,
-                     "--device", device.type, "--force-tsv"])
-        print(f"# cli run: exit {code} in {time.perf_counter() - t0:.3f} s", flush=True)
-        require(code == 0, f"gecco-tpu-torch run exited {code}")
-        counts = {}
-        for kind in ("genes", "features", "clusters"):
-            path = os.path.join(out, f"genome.{kind}.tsv")
-            require(os.path.exists(path), f"missing {path}")
-            with open(path) as f:
-                counts[kind] = sum(1 for _ in f) - 1
-        print(f"# cli tables: {counts['genes']} genes, {counts['features']} domains, "
-              f"{counts['clusters']} clusters", flush=True)
+        out = significance(*args, **kwargs)
+        record["select_s"] += time.perf_counter() - t0
+        return out
+
+    def timed_instances(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = instances(*args, **kwargs)
+        record["instances_end"] = time.perf_counter()
+        record["instances_s"] += record["instances_end"] - t0
+        return out
+
+    def timed_value_and_grad(*args):
+        t0 = time.perf_counter()
+        if record["first_evaluation"] is None:
+            record["first_evaluation"] = t0
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = value_and_grad(*args)
+        end.record()
+        end.synchronize()
+        record["evaluation_s"] += time.perf_counter() - t0
+        record["device_ms"] += start.elapsed_time(end)
+        record["evaluations"] += 1
+        record["args"] = args
+        return out
+
+    select.fisher_significance = timed_significance
+    train._build_instances = timed_instances
+    train._value_and_grad = timed_value_and_grad
+    try:
+        yield record
+    finally:
+        select.fisher_significance = significance
+        train._build_instances = instances
+        train._value_and_grad = value_and_grad
+
+
+def probabilities(crf, genes, device):
+    return numpy.array([g.average_probability
+                        for g in crf.predict_probabilities(stripped(genes), device=device)])
+
+
+def phase_train(device, state):
+    """8a: the full-width fit on the card; 8b: the same fit on the card and
+    on the CPU; 8c: the CLI's other five subcommands on the card."""
+    from gecco_tpu_torch.crf import ClusterCRF, train
+
+    shipped = numpy.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                      "gecco_tpu_torch", "data", "crf_model.npz"),
+                         allow_pickle=True)
+    names = [str(n) for n in shipped["sig_names"]]
+    width = len(shipped["attr_names"])
+    settings = {key: shipped[key].item() for key in
+                ("feature_type", "window_size", "window_step", "algorithm", "c1", "c2")}
+    rng = numpy.random.default_rng(TRAIN_SEED)
+    pool = rng.choice(len(names), size=CLUSTER_POOL, replace=False)
+
+    t0 = time.perf_counter()
+    corpus = training_corpus(names, pool, TRAIN_CONTIGS + HELD_OUT, TRAIN_GENES, TRAIN_SEED)
+    held_out = corpus[TRAIN_CONTIGS * TRAIN_GENES :]
+    corpus = corpus[: TRAIN_CONTIGS * TRAIN_GENES]
+    print(f"# 8a corpus: {TRAIN_CONTIGS} contigs x {TRAIN_GENES} genes "
+          f"({sum(len(g.protein.domains) for g in corpus)} domains, "
+          f"{sum(g.average_probability == 1.0 for g in corpus)} planted genes) from "
+          f"{len(names)} names, a cluster pool of {len(pool)}, {HELD_OUT} contigs held out; "
+          f"built in {time.perf_counter() - t0:.3f} s", flush=True)
+
+    crf = ClusterCRF(**settings)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with fit_probes() as probe:
+        t0 = time.perf_counter()
+        crf.fit(corpus, device=device, select=width / len(names))
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    _x, idx, y, c2 = probe["args"]
+    n_windows, window, dmax = idx.shape
+    index_s = probe["first_evaluation"] - probe["instances_end"]
+    per_evaluation = probe["device_ms"] / probe["evaluations"]
+    print(f"# 8a fit ({json.dumps(settings)}, select {width}/{len(names)}): {n_windows} windows "
+          f"of {window} genes, vocabulary {len(crf.attr_names)}, index tensor "
+          f"{list(idx.shape)} {idx.dtype} ({idx.numel() * idx.element_size()} bytes)", flush=True)
+    print(f"# 8a seconds: fit {fit_s!r}, of it host: selection {probe['select_s']!r}, "
+          f"instances {probe['instances_s']!r}, vocabulary and index {index_s!r}; "
+          f"{probe['evaluations']} evaluations, {probe['evaluation_s']!r} s in them, "
+          f"{per_evaluation!r} device ms each (CUDA events around upload, objective, "
+          f"gradient and download); peak device memory {peak} bytes", flush=True)
+    with device_trace() as prof:
+        t0 = time.perf_counter()
+        for _ in range(EVALUATIONS_TRACED):
+            train._value_and_grad(*probe["args"])
+        seconds = time.perf_counter() - t0
+    busy = sum(device_ms(prof).values()) / EVALUATIONS_TRACED
+    host_share = 1 - probe["evaluations"] * busy / 1e3 / fit_s
+    print(f"# 8a one evaluation (profiler, {EVALUATIONS_TRACED} at the final point): "
+          f"{busy!r} device ms busy of {seconds * 1e3 / EVALUATIONS_TRACED!r} ms wall; the "
+          f"fit's host share (1 - evaluations x busy ms / fit ms) {host_share!r}", flush=True)
+    zero = float(train.nll(torch.zeros((len(crf.attr_names) + 1, 2), device=device),
+                           torch.zeros((2, 2), device=device), idx, y, c2))
+    nonzero = int((crf.state != 0).any(axis=1).sum())
+    print(f"# 8a objective {crf.last_objective_!r} (nll(0) {zero!r}), {nonzero} of "
+          f"{len(crf.attr_names)} features with a non-zero weight", flush=True)
+    require(numpy.isfinite(crf.last_objective_) and crf.last_objective_ < zero,
+            f"8a objective {crf.last_objective_} not below nll(0) {zero}")
+    require(len(crf.attr_names) <= width, f"8a kept {len(crf.attr_names)} > {width} features")
+    p = probabilities(crf, held_out, device)
+    truth = numpy.array([g.average_probability == 1.0 for g in held_out])
+    print(f"# 8a held out ({HELD_OUT} contigs, predicted on {device}): mean probability "
+          f"{float(p[truth].mean())!r} of {int(truth.sum())} planted genes, "
+          f"{float(p[~truth].mean())!r} of "
+          f"{int((~truth).sum())} others", flush=True)
+    require(p[truth].mean() > 0.8 and p[~truth].mean() < 0.2, "8a model does not separate")
+
+    cut_corpus = training_corpus(names, pool, CUT_CONTIGS, CUT_GENES, TRAIN_SEED + 1)
+    for algorithm, iterations in (("lbfgs", 200), ("adam", 300)):
+        fits = {}
+        runs = [(device, 42), (torch.device("cpu"), 42)]
+        if algorithm == "lbfgs":
+            runs.append((device, 43))  # the same windows in another order
+        for where, seed in runs:
+            crf = ClusterCRF("protein", algorithm=algorithm,
+                             window_size=settings["window_size"], c1=0.0, c2=0.05)
+            with fit_probes() as probe:
+                t0 = time.perf_counter()
+                crf.fit(cut_corpus, device=where, max_iterations=iterations, seed=seed)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+            fits[where.type, seed] = (crf, probabilities(crf, cut_corpus, where), probe["args"])
+            print(f"# 8b {algorithm} on {where.type} (windows shuffled by seed {seed}): "
+                  f"{seconds:.3f} s, {probe['evaluations']} evaluations, objective "
+                  f"{crf.last_objective_!r}", flush=True)
+        card, cpu = fits[device.type, 42], fits["cpu", 42]
+        require(card[0].attr_names == cpu[0].attr_names, f"8b {algorithm}: vocabularies differ")
+        if algorithm == "lbfgs":  # Adam evaluates the same objective
+            same_function(card, cpu)
+        gaps = fit_gaps(card, cpu)
+        print(f"# 8b {algorithm} card against CPU ({CUT_CONTIGS} contigs x {CUT_GENES} genes, "
+              f"{len(card[0].attr_names)} features, {iterations} iterations at most): "
+              f"{json.dumps(gaps)} (bounds: objective {FIT_OBJECTIVE_RTOL} relative, weights "
+              f"{FIT_WEIGHT_ATOL}, probabilities {FIT_PROBABILITY_ATOL})", flush=True)
+        within = (gaps["objective_rel"] <= FIT_OBJECTIVE_RTOL
+                  and max(gaps["state_abs"], gaps["trans_abs"]) <= FIT_WEIGHT_ATOL
+                  and gaps["probability_abs"] <= FIT_PROBABILITY_ATOL)
+        if algorithm == "adam":
+            require(within, f"8b adam: the card's fit differs from the CPU's: {gaps}")
+        else:
+            print(f"# 8b lbfgs card against card, windows in another order: "
+                  f"{json.dumps(fit_gaps(card, fits[device.type, 43]))}; card against CPU "
+                  f"{'within' if within else 'outside'} the bounds (not required: the "
+                  f"copied L-BFGS stops short of the optimum on this corpus, where the "
+                  f"order of float32 sums alone moves its end point)", flush=True)
+    phase_train_cli(device, state, cut_corpus)
+
+
+def fit_gaps(a, b):
+    """How far two fits ``(crf, probabilities, args)`` of one corpus lie apart."""
+    return {"objective_rel": abs(a[0].last_objective_ / b[0].last_objective_ - 1),
+            "state_abs": float(numpy.abs(a[0].state - b[0].state).max()),
+            "trans_abs": float(numpy.abs(a[0].trans - b[0].trans).max()),
+            "probability_abs": float(numpy.abs(a[1] - b[1]).max())}
+
+
+def same_function(card, cpu):
+    """The objective and gradient on the card and on the CPU at the same
+    points, zero and the card fit's last: the objective within
+    ``EVALUATION_RTOL`` relative, the gradient at zero within
+    ``EVALUATION_RTOL`` of its largest magnitude (at the optimum it is a
+    difference of large sums, and only its objective is held)."""
+    from gecco_tpu_torch.crf import train
+
+    x_last, idx_card, y_card, c2 = card[2]
+    _, idx_cpu, y_cpu, _ = cpu[2]
+    require(torch.equal(idx_card.cpu(), idx_cpu) and torch.equal(y_card.cpu(), y_cpu),
+            "8b: the card's and the CPU's index tensors differ")
+    gaps = {}
+    for name, x in (("zero", numpy.zeros_like(x_last)), ("last", x_last)):
+        f_card, g_card = train._value_and_grad(x, idx_card, y_card, c2)
+        f_cpu, g_cpu = train._value_and_grad(x, idx_cpu, y_cpu, c2)
+        gaps[f"objective_rel_{name}"] = abs(f_card / f_cpu - 1)
+        gaps[f"gradient_rel_{name}"] = float(numpy.abs(g_card - g_cpu).max()
+                                             / numpy.abs(g_cpu).max())
+    print(f"# 8b objective and gradient, card against CPU at the same points: "
+          f"{json.dumps(gaps)} (bound {EVALUATION_RTOL})", flush=True)
+    require(gaps["objective_rel_zero"] <= EVALUATION_RTOL
+            and gaps["objective_rel_last"] <= EVALUATION_RTOL
+            and gaps["gradient_rel_zero"] <= EVALUATION_RTOL,
+            f"8b: the card's objective differs from the CPU's: {gaps}")
+
+
+def write_training_tables(genes, directory):
+    """``genes`` as the genes, features and clusters tables of ``train``
+    and ``cv`` (a cluster row for each run of labelled genes)."""
+    from gecco_tpu_torch.model import ClusterTable, FeatureTable, GeneTable
+
+    with open(os.path.join(directory, "genes.tsv"), "wb") as f:
+        GeneTable.from_genes(genes).dump(f)
+    with open(os.path.join(directory, "features.tsv"), "wb") as f:
+        FeatureTable.from_genes(genes).dump(f)
+    rows = {key: [] for key in ("sequence_id", "cluster_id", "start", "end", "average_p",
+                                "max_p", "type", "proteins", "domains")}
+    run = []
+    for gene, following in zip(genes, genes[1:] + [None]):
+        if gene.average_probability == 1.0:
+            run.append(gene)
+        if run and (following is None or following.source.id != gene.source.id
+                    or following.average_probability != 1.0):
+            rows["sequence_id"].append(gene.source.id)
+            rows["cluster_id"].append(f"{gene.source.id}_cluster_{len(rows['start']) + 1}")
+            rows["start"].append(run[0].start)
+            rows["end"].append(run[-1].end)
+            rows["average_p"].append(1.0)
+            rows["max_p"].append(1.0)
+            rows["type"].append("Polyketide")
+            rows["proteins"].append(";".join(g.protein.id for g in run))
+            rows["domains"].append("")
+            run = []
+    with open(os.path.join(directory, "clusters.tsv"), "wb") as f:
+        ClusterTable(rows).dump(f)
+
+
+def phase_train_cli(device, state, cut_corpus):
+    """8c: ``annotate``, ``predict``, ``train``, ``predict --model``, ``cv``
+    and ``convert`` on the card, from phase 7's genome, bank and output."""
+    from gecco_tpu_torch import _build
+    from gecco_tpu_torch.cli import main
+
+    tmp = state["workdir"]
+
+    def cli(name, argv):
+        t0 = time.perf_counter()
+        code = main([str(a) for a in argv])
+        print(f"# 8c {name}: exit {code} in {time.perf_counter() - t0:.3f} s", flush=True)
+        require(code == 0, f"gecco-tpu-torch {name} exited {code}")
+
+    def text(*parts):
+        with open(os.path.join(*parts)) as f:
+            return f.read()
+
+    dev = ["--device", device.type]
+    annotated = os.path.join(tmp, "annotate")
+    _build.reset_launches()
+    cli("annotate", ["annotate", "-g", state["genome_path"], "--hmm", state["bank_path"],
+                     "-o", annotated, *dev])
+    launches = dict(_build.launches)
+    print(f"# 8c annotate launches {json.dumps(launches)}", flush=True)
+    for name in DEFAULT_PATH:
+        require(launches[name] > 0, f"annotate did not launch kernel {name}")
+    tables = ["-g", os.path.join(annotated, "genome.genes.tsv"),
+              "-f", os.path.join(annotated, "genome.features.tsv")]
+    predicted = os.path.join(tmp, "predict")
+    cli("predict", ["predict", "--genome", state["genome_path"], *tables, "-o", predicted,
+                    "--force-tsv", *dev])
+    require(text(predicted, "genome.clusters.tsv") == text(state["run_dir"], "genome.clusters.tsv"),
+            "predict from annotate's tables does not give run's clusters table")
+    run_tables = ["-g", os.path.join(state["run_dir"], "genome.genes.tsv"),
+                  "-f", os.path.join(state["run_dir"], "genome.features.tsv"),
+                  "-c", os.path.join(state["run_dir"], "genome.clusters.tsv")]
+    model = os.path.join(tmp, "model")
+    cli("train", ["train", *run_tables, "-o", model, *dev])
+    files = sorted(os.listdir(model))
+    print(f"# 8c model files: {files}", flush=True)
+    for name in ("crf_model.npz", "crf_model.npz.sha256", "model.trans.tsv",
+                 "model.state.tsv", "domains.tsv", "types.tsv", "compositions.npz"):
+        require(name in files, f"train wrote no {name}")
+    cli("predict --model", ["predict", "--genome", state["genome_path"], *tables,
+                            "-o", os.path.join(tmp, "predict_model"), "--model", model,
+                            "--force-tsv", *dev])
+    corpus_dir = os.path.join(tmp, "corpus")
+    os.makedirs(corpus_dir)
+    write_training_tables(cut_corpus, corpus_dir)
+    cv_table = os.path.join(tmp, "cv.tsv")
+    cli("cv", ["cv", "-g", os.path.join(corpus_dir, "genes.tsv"),
+               "-f", os.path.join(corpus_dir, "features.tsv"),
+               "-c", os.path.join(corpus_dir, "clusters.tsv"), "-o", cv_table,
+               "--splits", "3", *dev])
+    from gecco_tpu_torch.crf.metrics import roc_auc_score
+
+    rows = [row.split("\t") for row in text(cv_table).splitlines()]
+    require(len(rows) == len(cut_corpus) + 1, f"cv wrote {len(rows) - 1} of {len(cut_corpus)} genes")
+    label, probability = rows[0].index("is_cluster"), rows[0].index("average_p")
+    auroc = roc_auc_score([row[label] == "true" for row in rows[1:]],
+                          [float(row[probability]) for row in rows[1:]])
+    print(f"# 8c cv: AUROC {auroc!r} over the {len(rows) - 1} genes of its folds", flush=True)
+    require(auroc > 0.9, f"cv's folds predict their clusters with an AUROC of {auroc}")
+    converted = os.path.join(tmp, "convert")
+    cli("convert gbk", ["convert", "gbk", "-i", state["run_dir"], "-o", converted, "-f", "faa"])
+    cli("convert clusters", ["convert", "clusters", "-i", state["run_dir"], "-o", converted,
+                             "-f", "gff"])
+    written = sorted(os.listdir(converted))
+    require(any(n.endswith(".faa") for n in written) and "genome.clusters.gff" in written,
+            f"convert wrote {written}")
 
 
 def main():
@@ -1451,8 +1849,12 @@ def main():
         phase_msv_search(device, state)
     with Phase("6 pair domains"):
         phase_pair_domains(device, state)
-    with Phase("7 cli"):
-        phase_cli(device, state)
+    with tempfile.TemporaryDirectory() as workdir:
+        state["workdir"] = workdir
+        with Phase("7 cli"):
+            phase_cli(device, state)
+        with Phase("8 train"):
+            phase_train(device, state)
 
     loaded = sorted(name for name, module in sys.modules.items()
                     if module is not None and name.split(".")[0] in ("jax", "gecco_tpu"))

@@ -1,6 +1,6 @@
 """The port's CLI command tree and its dependency-injected ``main``.
 
-Port of ``gecco_tpu.cli.commands.main`` for the ``run`` subcommand.
+Port of ``gecco_tpu.cli.commands.main`` with its six subcommands.
 Unlike the JAX CLI it sets up no compilation cache and no XLA trace.
 """
 
@@ -11,12 +11,18 @@ from typing import Callable, Dict, Iterable, Optional, TextIO, Type
 
 from ... import __version__
 from .._log import make_logger
-from . import _common, run
+from . import _common
+from . import annotate, convert, cv, predict, run, train
 
 __all__ = ["configure_parser", "main"]
 
 _COMMANDS = {
+    "annotate": (annotate, "Annotate protein features of one or several contigs."),
     "run": (run, "Predict gene clusters from one or several contigs."),
+    "predict": (predict, "Predict gene clusters on contigs that have been annotated."),
+    "train": (train, "Train a new CRF model on pre-generated tables."),
+    "cv": (cv, "Train and evaluate a model using cross-validation."),
+    "convert": (convert, "Convert output files to a different format."),
 }
 
 

@@ -2,23 +2,29 @@
 
 A copy of ``gecco_tpu.cli.commands._common`` (reference:
 ``gecco/cli/commands/_common.py`` — table writers (:47-120),
-sequence loading (:133-262), gene extraction dispatch (:347-388),
-domain annotation with disentangling and e/p filtering (:419-550),
-probability prediction (:565-592), cluster extraction (:595-625), type
-prediction (:644-670)), cut to what ``run`` calls: the resume loaders
-and training helpers of the unported subcommands are left out.  The two
-device-bound steps, :func:`annotate_domains` and
-:func:`predict_probabilities`, take an explicit ``device``.
+sequence/table loaders with strict coordinate cross-validation on resume
+(:133-262), source re-attachment (:265-292), cluster labelling
+(:308-341), gene extraction dispatch (:347-388), domain annotation with
+disentangling and e/p filtering (:419-550), probability prediction
+(:565-592), cluster extraction (:595-625), type prediction (:644-670),
+training helpers (:676-724)).  The device-bound steps,
+:func:`annotate_domains`, :func:`predict_probabilities` and
+:func:`fit_model`, take an explicit ``device``.
 """
 
 import collections
 import itertools
 import json
+import math
 import operator
 import os
-from typing import Iterable, List, Optional, Set
+import random
+from typing import Iterable, Iterator, List, Optional, Set
+
+import numpy
 
 from ... import __version__
+from ..._meta import zopen
 from ...profiling import timed
 
 __all__ = []  # internal module
@@ -168,6 +174,164 @@ def shard_sequences(logger, sequences: List, *, shard: Optional[str]) -> List:
         f"(shard {index + 1}/{count})", level=1,
     )
     return [sequences[i] for i in keep]
+
+
+def load_genes(logger, table_path) -> Iterator:
+    from ...model import GeneTable
+
+    logger.info("Loading", "genes table from file", repr(str(table_path)))
+    with zopen(str(table_path)) as f:
+        table = GeneTable.load(f)
+    yield from table.to_genes()
+
+
+def load_features(logger, table_paths):
+    from ...model import FeatureTable
+
+    features = FeatureTable()
+    for filename in table_paths:
+        logger.info("Loading", "features table from file", repr(str(filename)))
+        with zopen(str(filename)) as f:
+            features += FeatureTable.load(f)
+    logger.success("Loaded", "a total of", len(features), "features", level=1)
+    return features
+
+
+def annotate_genes(logger, genes: List, features) -> List:
+    """Join features.tsv domains onto genes with strict coordinate checks.
+
+    Domains are rebuilt with the same InterPro metadata and qualifiers a
+    live annotation run attaches (``gecco_tpu_torch/hmm/__init__.py``;
+    reference ``gecco/hmmer/__init__.py:155-176``), so the resume path
+    writes the same GenBank records as a full run.  (The reference's own
+    resume loader drops this metadata, ``_common.py:211-262`` — a known
+    gap.)
+    """
+    from ...interpro import InterPro
+    from ...model import Domain
+
+    interpro = InterPro.load()
+    gene_index = {gene.protein.id: gene for gene in genes}
+    if len(gene_index) < len(genes):
+        raise ValueError("Duplicate gene names in input genes")
+    for i in range(len(features)):
+        protein_id = features.protein_id[i]
+        gene = gene_index[protein_id]
+        if gene.source.id != features.sequence_id[i]:
+            raise ValueError(
+                f"Mismatched source sequence for {protein_id!r}: "
+                f"{gene.source.id!r} != {features.sequence_id[i]!r}"
+            )
+        if gene.start != features.start[i]:
+            raise ValueError(
+                f"Mismatched gene start for {protein_id!r}: "
+                f"{gene.start!r} != {features.start[i]!r}"
+            )
+        if gene.end != features.end[i]:
+            raise ValueError(
+                f"Mismatched gene end for {protein_id!r}: "
+                f"{gene.end!r} != {features.end[i]!r}"
+            )
+        if gene.strand.sign != features.strand[i]:
+            raise ValueError(
+                f"Mismatched gene strand for {protein_id!r}: "
+                f"{gene.strand.sign!r} != {features.strand[i]!r}"
+            )
+        probability = features.cluster_probability[i]
+        if isinstance(probability, float) and math.isnan(probability):
+            probability = None
+        accession = features.domain[i]
+        entry = interpro.lookup(accession)
+        qualifiers = {
+            "inference": ["protein motif"],
+            "db_xref": ["{}:{}".format(features.hmm[i].upper(), accession)],
+            "note": [
+                "e-value: {}".format(features.i_evalue[i]),
+                "p-value: {}".format(features.pvalue[i]),
+            ],
+        }
+        if entry is not None:
+            qualifiers["function"] = [entry.name]
+            qualifiers["db_xref"].append("InterPro:{}".format(entry.accession))
+            go_terms = entry.go_terms
+            go_functions = entry.go_functions
+        else:
+            go_terms = []
+            go_functions = []
+        gene.protein.domains.append(Domain(
+            name=accession,
+            start=features.domain_start[i],
+            end=features.domain_end[i],
+            hmm=features.hmm[i],
+            i_evalue=features.i_evalue[i],
+            pvalue=features.pvalue[i],
+            probability=probability,
+            go_terms=go_terms,
+            go_functions=go_functions,
+            qualifiers=qualifiers,
+        ))
+    return list(gene_index.values())
+
+
+def assign_sources(logger, sequences, genes: List, *, genome) -> Iterator:
+    """Re-attach real source records and re-translate protein sequences."""
+    from ...model import Strand
+
+    known = {gene.source.id for gene in genes}
+    index = {record.id: record for record in sequences if record.id in known}
+    logger.info("Assigning", "source sequences to gene objects", level=2)
+    for gene in genes:
+        try:
+            source = index[gene.source.id]
+        except KeyError as err:
+            raise RuntimeError(
+                f"Sequence {gene.source.id!r} not found in {str(genome)!r}"
+            ) from err
+        gene = gene.with_source(source)
+        gene_seq = source.seq[gene.start - 1 : gene.end]
+        if gene.strand == Strand.Reverse:
+            from ...seq import reverse_complement
+
+            gene_seq = reverse_complement(gene_seq)
+        from ...seq import Seq
+
+        # translate like the gene callers do (table 11, initiator codon
+        # rendered as M for the alternative starts GTG/TTG) so resumed
+        # records byte-match the caller's output; the reference resumes
+        # with a plain table-1 translate() (_common.py:286-290), which
+        # diverges from its own gene caller on non-ATG starts
+        # keep the trailing '*' (Pyrodigal keeps it; the golden GBK
+        # /translation qualifiers end with it)
+        protein_seq = Seq(gene_seq).translate(table=11)
+        if protein_seq and gene_seq[:3].upper() in ("ATG", "GTG", "TTG"):
+            protein_seq = Seq("M" + protein_seq[1:])
+        gene.qualifiers.setdefault("transl_table", ["11"])
+        gene = gene.with_protein(gene.protein.with_seq(protein_seq))
+        yield gene
+
+
+def load_clusters(logger, clusters):
+    from ...model import ClusterTable
+
+    logger.info("Loading", "clusters table from file", repr(str(clusters)))
+    with zopen(str(clusters)) as f:
+        return ClusterTable.load(f)
+
+
+def label_genes(logger, genes: List, clusters) -> List:
+    """Probability 1 for genes overlapping any cluster row, else 0."""
+    by_seq = collections.defaultdict(list)
+    for i in range(len(clusters)):
+        by_seq[clusters.sequence_id[i]].append((clusters.start[i], clusters.end[i]))
+    logger.info("Labelling", "genes belonging to clusters")
+    labelled = []
+    for gene in genes:
+        spans = by_seq[gene.source.id]
+        if any(start <= gene.end and gene.start <= end for start, end in spans):
+            labelled.append(gene.with_probability(1))
+        else:
+            labelled.append(gene.with_probability(0))
+    return labelled
 
 
 # --- Extract genes ------------------------------------------------------------
@@ -360,3 +524,29 @@ def predict_types(logger, clusters: List, *, classifier) -> List:
             best = max(cluster.type_probabilities, key=cluster.type_probabilities.get)
             logger.warn(f"Couldn't assign type to {cluster.id} (maybe {best})")
     return clusters
+
+
+# --- Train --------------------------------------------------------------------
+
+def seed_rng(logger, seed: int) -> None:
+    logger.info("Seeding", "the random number generator with seed", seed, level=2)
+    random.seed(seed)
+    numpy.random.seed(seed)
+
+
+@timed("fit-model")
+def fit_model(
+    logger, genes: List, *,
+    feature_type, c1, c2, window_size, window_step,
+    shuffle, select, correction, device, seed: int = 42, jobs: int = 0, crf_type,
+):
+    logger.info("Creating", f"the CRF in {feature_type} mode", level=1)
+    logger.info("Using", f"provided hyperparameters (C1={c1}, C2={c2})", level=1)
+    crf = crf_type(
+        feature_type, algorithm="lbfgs",
+        window_size=window_size, window_step=window_step, c1=c1, c2=c2,
+    )
+    logger.info("Fitting", f"the CRF model to the training data on {device}")
+    crf.fit(genes, select=select, shuffle=shuffle, correction_method=correction, seed=seed,
+            device=device)
+    return crf

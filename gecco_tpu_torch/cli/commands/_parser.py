@@ -1,11 +1,13 @@
 """Argument groups of the port's CLI.
 
-Copies of the ``gecco_tpu.cli.commands._parser`` groups that ``run``
-takes (reference: ``gecco/cli/commands/_parser.py``), with two that
-differ: the annotation group replaces ``--backend {auto,pallas,xla}``
-and ``--devices`` with an explicit ``--device {cuda,cpu}`` and
-``--backend {cuda,torch}``; the common group has no ``--profile`` (the
-XLA trace).
+Copies of the ``gecco_tpu.cli.commands._parser`` groups (reference:
+``gecco/cli/commands/_parser.py``), with the same flags and defaults
+(``-W 5``, ``--c1 0.15``, ``--c2 0.15``, ``--seed 42``), except that the
+annotation group replaces ``--backend {auto,pallas,xla}`` and
+``--devices`` with an explicit ``--device {cuda,cpu}`` and ``--backend
+{cuda,torch}``, that ``predict``, ``train`` and ``cv`` take the same
+``--device`` (:func:`group_device`), and that the common group has no
+``--profile`` (the XLA trace).
 """
 
 import argparse
@@ -15,11 +17,16 @@ from typing import Dict
 __all__ = [
     "configure_common",
     "group_input_sequences",
+    "group_input_tables",
     "group_gene_calling",
     "group_annotation",
+    "group_device",
+    "group_filtering",
     "group_output",
     "group_predict",
     "group_segmentation",
+    "group_training_data",
+    "group_training_parameters",
 ]
 
 
@@ -49,6 +56,17 @@ def group_input_sequences(parser, defaults: Dict[str, object], short: bool = Tru
                                 "contig shards (multi-host runs; merge the per-shard tables afterwards).")
 
 
+def group_input_tables(parser, defaults: Dict[str, object], clusters: bool = True) -> None:
+    group = parser.add_argument_group("Input Tables")
+    group.add_argument("-f", "--features", type=pathlib.Path, action="append", required=True,
+                       help="The path to a domain annotation table (repeatable).")
+    group.add_argument("-g", "--genes", type=pathlib.Path, required=True,
+                       help="The path to a gene coordinate table.")
+    if clusters:
+        group.add_argument("-c", "--clusters", type=pathlib.Path, required=True,
+                           help="The path to a cluster annotation table.")
+
+
 def group_gene_calling(parser, defaults: Dict[str, object]) -> None:
     group = parser.add_argument_group("Gene Calling")
     group.add_argument("-M", "--mask", action="store_true", default=defaults.get("--mask", False),
@@ -75,14 +93,30 @@ def group_annotation(parser, defaults: Dict[str, object]) -> None:
     group.add_argument("--disentangle", action="store_true",
                        default=defaults.get("--disentangle", False),
                        help="Keep only the most significant domain among overlapping annotations.")
-    group.add_argument("--device", choices=("cuda", "cpu"),
-                       default=defaults.get("--device", "cuda"),
-                       help="Device for the profile-HMM search and the CRF decode "
-                            "(cuda fails when no card is present).")
+    _add_device(group, defaults, "the profile-HMM search and the CRF decode")
     group.add_argument("--backend", choices=("cuda", "torch"),
                        default=defaults.get("--backend", "cuda"),
                        help="Search engine: the CUDA kernels (plain PyTorch on a "
                             "cpu device), or plain PyTorch everywhere.")
+
+
+def _add_device(group, defaults: Dict[str, object], what: str) -> None:
+    group.add_argument("--device", choices=("cuda", "cpu"),
+                       default=defaults.get("--device", "cuda"),
+                       help=f"Device for {what} (cuda fails when no card is present).")
+
+
+def group_device(parser, defaults: Dict[str, object]) -> None:
+    group = parser.add_argument_group("Device")
+    _add_device(group, defaults, "the CRF fit and decode")
+
+
+def group_filtering(parser, defaults: Dict[str, object]) -> None:
+    group = parser.add_argument_group("Domain Filtering")
+    group.add_argument("-e", "--e-filter", type=float, default=defaults.get("--e-filter", None),
+                       help="Exclude domains with an i-evalue over this value.")
+    group.add_argument("-p", "--p-filter", type=float, default=defaults.get("--p-filter", 1e-9),
+                       help="Exclude domains with a p-value over this value.")
 
 
 def group_output(parser, defaults: Dict[str, object], merge: bool = True) -> None:
@@ -125,3 +159,30 @@ def group_segmentation(parser, defaults: Dict[str, object]) -> None:
     else:
         group.add_argument("--trim", action="store_true", dest="trim",
                            help="Trim unannotated edge genes from predicted clusters.")
+
+
+def group_training_data(parser, defaults: Dict[str, object]) -> None:
+    group = parser.add_argument_group("Training Data")
+    group.add_argument("--no-shuffle", action="store_false", dest="shuffle",
+                       help="Disable shuffling of the contigs before fitting.")
+    group.add_argument("--seed", type=int, default=defaults.get("--seed", 42),
+                       help="The seed for the random number generator.")
+
+
+def group_training_parameters(parser, defaults: Dict[str, object]) -> None:
+    group = parser.add_argument_group("Training Parameters")
+    group.add_argument("-W", "--window-size", type=int, default=defaults.get("--window-size", 5),
+                       help="The length of the sliding window for CRF predictions.")
+    group.add_argument("--window-step", type=int, default=defaults.get("--window-step", 1),
+                       help="The step of the sliding window for CRF predictions.")
+    group.add_argument("--c1", type=float, default=defaults.get("--c1", 0.15),
+                       help="The strength of the L1 regularization.")
+    group.add_argument("--c2", type=float, default=defaults.get("--c2", 0.15),
+                       help="The strength of the L2 regularization.")
+    group.add_argument("--feature-type", choices=("protein", "domain"),
+                       default=defaults.get("--feature-type", "protein"),
+                       help="The level at which features are extracted for the CRF.")
+    group.add_argument("--select", type=float, default=defaults.get("--select", None),
+                       help="The fraction of most significant features to select before training.")
+    group.add_argument("--correction", default=defaults.get("--correction", None),
+                       help="The multiple-testing correction method for feature selection.")

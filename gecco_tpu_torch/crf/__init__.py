@@ -6,8 +6,9 @@ window batches of ``_TORCH_BATCH_THRESHOLD`` or more (where the JAX
 package used ``marginals_jax``) are decoded by
 :func:`~gecco_tpu_torch.crf.decode.marginals_torch` on the given
 device, smaller ones by the same float64 host engine as the JAX package
-(:func:`~gecco_tpu_torch.crf.decode.marginals_numpy`).  Training is not
-ported yet: :meth:`ClusterCRF.fit` raises.
+(:func:`~gecco_tpu_torch.crf.decode.marginals_numpy`).  Training,
+:meth:`ClusterCRF.fit`, evaluates its objective and gradient on the
+given device (:mod:`gecco_tpu_torch.crf.train`).
 """
 
 import hashlib
@@ -285,11 +286,32 @@ class ClusterCRF(object):
 
     # ------------------------------------------------------------------
 
-    def fit(self, genes: Iterable[Gene], **options: object) -> None:
-        """Not ported yet: CRF training is item 11 of ROADMAP.md Queue 1."""
-        raise NotImplementedError(
-            "ClusterCRF.fit is not ported to PyTorch yet (ROADMAP.md, Queue 1 "
-            "item 11: CRF training); train with the gecco_tpu package")
+    def fit(
+        self,
+        genes: Iterable[Gene],
+        *,
+        device,
+        select: Optional[float] = None,
+        shuffle: bool = True,
+        cpus: Optional[int] = None,
+        correction_method: Optional[str] = None,
+        seed: int = 42,
+        max_iterations: int = 200,
+    ) -> None:
+        """Fit the CRF with OWL-QN/L-BFGS, objective and gradient on ``device``
+        (see `gecco_tpu_torch.crf.train`); ``cpus`` is accepted and ignored."""
+        from .train import fit_crf
+
+        fit_crf(
+            self,
+            genes,
+            device=device,
+            select=select,
+            shuffle=shuffle,
+            correction_method=correction_method,
+            seed=seed,
+            max_iterations=max_iterations,
+        )
 
     def save(self, model_path: Union[str, "os.PathLike[str]"]) -> None:
         """Write ``crf_model.npz`` (+ SHA256 sidecar) into a directory."""

@@ -69,8 +69,3 @@ def test_cluster_crf_matches_jax_package(batch_decode):
     numpy.testing.assert_allclose(a, b, atol=tol, rtol=0)
     assert a.max() > 0.5 > a.min()
     assert all(type(g).__module__ == "gecco_tpu_torch.model" for g in mine)
-
-
-def test_cluster_crf_fit_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        ClusterCRF.trained().fit([])
