@@ -39,9 +39,11 @@ Phases (each prints its wall seconds, each ends in a device sync):
    survivor funnel, the pairs whose domains the host engine defined,
    peak device memory, the device ms of kernels A-G per width class
    (A-C launched once a class, D-G once a class and launch group),
-   kernel C alone on the search's F3 pairs and on ``calibrate``'s
-   708,096 pairs, per width class between CUDA events (beside
-   calibrate's wall), kernels D-G alone over the rows the search gave
+   ``calibrate``'s wall and launches (kernel A once a width class, kernel
+   H once a class in each semiring, no B or C), kernel C alone on the
+   search's F3 pairs and kernel H alone on ``calibrate``'s 256
+   background sequences in both semirings, per width class between CUDA
+   events, kernels D-G alone over the rows the search gave
    them (E on D's outputs, G on F's planes and the search's envelopes),
    per width class between CUDA events, and the same search on plain
    PyTorch for the first proteins as a reference;
@@ -98,7 +100,23 @@ Phases (each prints its wall seconds, each ends in a device sync):
    order on the card (8b); ``annotate``,
    ``predict`` (giving phase 7's clusters table), ``train``, ``predict
    --model``, ``cv`` and ``convert`` on the card, from phase 7's genome
-   and output (8c).
+   and output (8c);
+9. the modules around the kernels, each sub-phase with its wall seconds
+   and device ms: ``tools/torch_check.py`` in-process (9a); the float64
+   host path (``use_accelerator=False``) against the kernels on 16 of
+   phase 3's proteins and 64 of its profiles: no launch, no device
+   memory, every kernel hit a host hit but for float64 gate values
+   within 1e-3 of their thresholds, scores within 5e-3 bits, seconds a
+   pair (9b); phase 3's search sharded over two slots of the one card
+   (``devices=[cuda:0, cuda:0]``, a thread each): phase 3's funnel and
+   hits, the launches of the two shards alone, ``stage_devices`` 2; and
+   pinned to ``[cuda:0]`` (9c); ``sharded_forward_scores`` on a 2 x 2
+   mesh of the card over phase 4's bank and 32 proteins in both
+   semirings against one ``dense_scores`` call (9d); ``crf_train_step``
+   on a 2-slot data mesh of the card over 8a's windows against the
+   1-slot step (9e); ``run --profile DIR`` (a trace naming kernel A's
+   ``ssv_kernel``, phase 7's clusters table) and ``run --devices 1``
+   (phase 7's tables) (9f).
 
 The searches of phases 3, 4 and 5 and the domain definition of phase 6
 run under ``torch.profiler`` (device activity only), which gives each
@@ -115,6 +133,7 @@ must run without them.
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import re
 import subprocess
@@ -134,7 +153,10 @@ WIDE_NODES = 2100
 DOMAIN_PROTEINS = 256
 #: proteins of the dense kernel's check against its plain version
 DENSE_PROTEINS = 32
-#: the survivor funnel of the search through F3 (``stage_counts``)
+#: the survivor funnel of the search through F3 (``stage_counts``), measured
+#: on the H100 with the stats ``calibrate`` fits from kernels A and H; its
+#: earlier scoring on kernels A, B and C gave the same funnels (the Viterbi
+#: locations moved by at most 9.1e-5 bits, the others not at all)
 FUNNEL = {"pairs": 8339490, "F1": 417790, "F2": 31893, "F3": 1800}
 #: the ``max_filter`` search's candidates and reported hits (measured on
 #: the H100 since kernel H was first ported)
@@ -143,6 +165,11 @@ MAX_FILTER_FUNNEL = {"F3": 210321, "reported": 186503}
 MSV_FUNNEL = {"pairs": 8339490, "F1": 417859, "F2": 31908, "F3": 1813}
 #: proteins of the searches held against the plain PyTorch search
 HEAD = 48
+#: proteins and profiles (``13 i mod 2,766``, those planted in the first
+#: proteins and others) of phase 9b's float64 host path
+HOST_PROTEINS, HOST_PROFILES = 16, 64
+#: learning rate of phase 9e's step over 8a's ~115,000 windows (a summed loss)
+TRAIN_STEP_LR = 1e-5
 #: absolute tolerances (nats, or probabilities): max-plus kernels are
 #: exact up to their order of maxima; sum-product kernels and their log
 #: scales sum in another order than the plain versions; trajectories,
@@ -868,7 +895,7 @@ def profiled_search(pipeline, seqs, device, path):
                    and 1 <= d.hmm_from <= d.hmm_to <= h.profile.M
                    and numpy.isfinite(d.bitscore))]
     require(not bad, f"malformed domains {bad[:5]}")
-    return hits, launches, classes
+    return hits, launches, classes, seconds
 
 
 @contextlib.contextmanager
@@ -966,6 +993,8 @@ def compare_with_plain(pipeline, profiles, head, device, **options):
 
 
 def phase_search(device, state):
+    from gecco_tpu_torch import _build
+    from gecco_tpu_torch.hmm.bank import width_class
     from gecco_tpu_torch.hmm.calibrate import calibrate
     from gecco_tpu_torch.hmm.kernels import SeqPack
     from gecco_tpu_torch.hmm.pipeline import SearchPipeline
@@ -978,17 +1007,27 @@ def phase_search(device, state):
           f"({sum(map(len, seqs))} residues) x {len(profiles)} profiles "
           f"in {time.perf_counter() - t0:.3f} s; gene calling on the "
           f"{_native.path()} ORF path", flush=True)
+    _build.reset_launches()
     t0 = time.perf_counter()
     calibrate(profiles, device=device)
     torch.cuda.synchronize()
     calibrate_s = time.perf_counter() - t0
-    print(f"# calibrate (port, kernels): {calibrate_s:.3f} s", flush=True)
+    launches = dict(_build.launches)
+    classes = len({width_class(gm.M) for gm in profiles})
+    print(f"# calibrate (port, kernels A and H): {calibrate_s:.3f} s; launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})}", flush=True)
+    require(launches["ssv_filter"] == classes and launches["dense_scores"] == 2 * classes,
+            f"calibrate made {launches} launches, not A once and H twice a width class")
+    require(launches["viterbi_pairs"] == launches["forward_pairs"] == 0,
+            "calibrate launched kernel B or C")
 
     pipeline = SearchPipeline(profiles, device=device, Z=N_PROFILES, domZ=N_PROFILES,
                               backend="cuda")
     with recorded_domain_rows() as domain_rows:
-        hits, launches, _classes = profiled_search(pipeline, seqs, device, DEFAULT_PATH)
-    candidates = list(pipeline.candidate_pairs)   # before the next search replaces them
+        hits, launches, _classes, search_s = profiled_search(pipeline, seqs, device,
+                                                             DEFAULT_PATH)
+    # before the next search replaces them
+    candidates, search_counts = list(pipeline.candidate_pairs), dict(pipeline.stage_counts)
     for name in ("ssv_filter", "viterbi_pairs"):
         require(launches[name] == len(pipeline.bank.classes),
                 f"{name} made {launches[name]} launches, not one per width class")
@@ -1000,16 +1039,26 @@ def phase_search(device, state):
     compare_with_plain(pipeline, profiles, seqs[:HEAD], device)
     state.update(genome=genome, profiles=profiles, seqs=seqs, launches=launches,
                  hits={(h.sequence_index, h.profile.name) for h in hits},
-                 bank=pipeline.bank, candidates=candidates)
+                 bank=pipeline.bank, candidates=candidates, search_s=search_s,
+                 search_hits=[hit_record(h) for h in hits],
+                 search_counts=search_counts)
+
+
+def hit_record(h):
+    """``(sequence, profile, score, domain coordinates, domain bits)`` of a hit."""
+    return (h.sequence_index, h.profile.name, h.score,
+            [(d.ienv, d.jenv, d.target_from, d.target_to, d.hmm_from, d.hmm_to)
+             for d in h.domains], [d.bitscore for d in h.domains])
 
 
 def forward_on_search(pipeline, seqs, device, calibrate_s):
-    """Kernel C per width class between CUDA events: on the pairs the
-    search's F3 rescored, and on the all-pairs launch of ``calibrate`` (256
+    """Kernel C per width class between CUDA events on the pairs the
+    search's F3 rescored; kernel H per width class between CUDA events, in
+    both semirings, on the all-pairs launches of ``calibrate`` (256
     background sequences of 256 residues against every profile), printed
     beside calibrate's wall."""
     from gecco_tpu_torch.hmm.calibrate import background_sequences
-    from gecco_tpu_torch.hmm.kernels import SeqPack, dense_nodes
+    from gecco_tpu_torch.hmm.kernels import SeqPack, dense_nodes, dense_scores
     from gecco_tpu_torch.hmm.stream import forward_launches
 
     bank = pipeline.bank
@@ -1026,15 +1075,17 @@ def forward_on_search(pipeline, seqs, device, calibrate_s):
           f"events, summed over classes), {json.dumps(bound(*work))} ({work[0]!r} flops, "
           f"{work[1]!r} bytes)", flush=True)
     cal = SeqPack(background_sequences(), device)
-    s_cal = numpy.repeat(numpy.arange(cal.S), bank.P)
-    p_cal = numpy.tile(numpy.arange(bank.P), cal.S)
-    per_class = pair_class_rates("forward_pairs in calibrate (CUDA events)", forward_launches,
-                                 cal, bank, s_cal, p_cal, nodes, 1)
-    work = pair_work(cal, lengths, s_cal, p_cal, FLOPS_PER_CELL["forward_pairs"],
-                     4.0 * len(s_cal))
-    print(f"# calibrate: {calibrate_s:.3f} s wall; its kernel C launches alone "
-          f"{sum(per_class.values())!r} ms (CUDA events, {len(s_cal)} pairs), "
-          f"{json.dumps(bound(*work))}", flush=True)
+    total = {}
+    for semiring in ("viterbi", "forward"):
+        viterbi = semiring == "viterbi"
+        per_class = class_events_ms(lambda b: dense_scores(cal, b, viterbi=viterbi), bank, 1)
+        print_class_rates(f"dense_scores ({semiring}) in calibrate (CUDA events)",
+                          per_class, cal, bank, nodes)
+        total[semiring] = sum(per_class.values())
+    work = all_pairs_work(cal, lengths, FLOPS_PER_CELL["dense_forward"])
+    print(f"# calibrate: {calibrate_s:.3f} s wall; its kernel H launches alone "
+          f"{json.dumps(total)} ms (CUDA events, {cal.S * bank.P} pairs a semiring), "
+          f"Forward's {json.dumps(bound(*work))}", flush=True)
 
 
 def phase_max_filter(device, state):
@@ -1046,7 +1097,7 @@ def phase_max_filter(device, state):
     pipeline = SearchPipeline(profiles, device=device, Z=N_PROFILES, domZ=N_PROFILES,
                               max_filter=True, backend="cuda")
     with recorded_domain_rows() as domain_rows:
-        hits, launches, classes = profiled_search(pipeline, seqs, device, MAX_FILTER_PATH)
+        hits, launches, classes, _s = profiled_search(pipeline, seqs, device, MAX_FILTER_PATH)
     require(launches["dense_scores"] == len(pipeline.bank.classes),
             f"dense_scores made {launches['dense_scores']} launches, not one per width class")
     pairs = FUNNEL["pairs"]
@@ -1134,7 +1185,7 @@ def phase_msv_search(device, state):
     profiles, seqs = state["profiles"], state["seqs"]
     pipeline = SearchPipeline(profiles, device=device, Z=N_PROFILES, domZ=N_PROFILES,
                               filter_stage="msv", backend="cuda")
-    hits, launches, _classes = profiled_search(pipeline, seqs, device, MSV_PATH)
+    hits, launches, _classes, _s = profiled_search(pipeline, seqs, device, MSV_PATH)
     counts = pipeline.stage_counts
     require(launches["msv_filter"] == len(pipeline.bank.classes),
             f"msv_filter made {launches['msv_filter']} launches, not one per width class")
@@ -1564,6 +1615,7 @@ def phase_train(device, state):
         fit_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     _x, idx, y, c2 = probe["args"]
+    state.update(windows=(idx, y, len(crf.attr_names)))
     n_windows, window, dmax = idx.shape
     index_s = probe["first_evaluation"] - probe["instances_end"]
     per_evaluation = probe["device_ms"] / probe["evaluations"]
@@ -1781,6 +1833,276 @@ def phase_train_cli(device, state, cut_corpus):
             f"convert wrote {written}")
 
 
+# --- phase 9: the modules around the kernels --------------------------------------
+
+@contextlib.contextmanager
+def sub_phase(name, traced=True):
+    """Sub-phase ``9<name>``: prints its wall seconds and the device ms the
+    profiler recorded in it (:func:`device_trace`, after its lead); without
+    ``traced`` (a body that opens its own trace) the caller reports the
+    device ms through the yielded dict's ``device_ms``."""
+    out = {}
+    print(f"# phase 9{name}: start", flush=True)
+    trace = device_trace() if traced else contextlib.nullcontext()
+    t_open = time.perf_counter()
+    with trace as prof:
+        t0 = time.perf_counter()
+        yield out
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(device_ms(prof).values()) if traced else out.get("device_ms")
+    print(f"# phase 9{name}: {wall:.3f} s wall, {busy!r} device ms (with the trace's opening, "
+          f"lead and reading {time.perf_counter() - t_open:.3f} s)", flush=True)
+
+
+def gate_values(pipeline, gm, x, Z, domZ):
+    """The float64 host path's gate values of one pair, each beside its
+    threshold: the bias-filtered F3 P-value, the E-value and the best
+    domain's i-Evalue."""
+    from gecco_tpu_torch.hmm import engine
+    from gecco_tpu_torch.hmm.bank import ProfileBank, bias_logratio
+    from gecco_tpu_torch.hmm.profile import null1_score
+
+    ln2 = math.log(2.0)
+    fwd = engine.forward(gm, x)
+    bits = (fwd.score - null1_score(len(x))) / ln2
+    tau, lam = gm.hmm.stats["FORWARD"]
+    counts = numpy.bincount(numpy.minimum(x, 20), minlength=21)[:20].astype(numpy.float64)
+    delta = float(counts @ bias_logratio(ProfileBank.build([gm])).astype(numpy.float64)[:, 0])
+    extra = max(numpy.logaddexp(0.0, delta) - ln2, 0.0) / ln2
+    gates = {"F3": (engine.exp_surv(bits - extra, tau, lam), pipeline.F3),
+             "E": (engine.exp_surv(bits, tau, lam) * Z, pipeline.E)}
+    domains = engine.define_domains(gm, x, fwd)
+    if domains:
+        gates["domE"] = (min(d.pvalue for d in domains) * domZ, pipeline.domE)
+    return gates
+
+
+def phase_host_path(device, state):
+    """9b: ``use_accelerator=False`` against the kernels on a cut of phase 3."""
+    from gecco_tpu_torch import _build
+    from gecco_tpu_torch.hmm.pipeline import SearchPipeline
+
+    seqs = state["seqs"][:HOST_PROTEINS]
+    profiles = [state["profiles"][(13 * i) % N_PROFILES] for i in range(HOST_PROFILES)]
+    cuda = SearchPipeline(profiles, device=device, Z=N_PROFILES, domZ=N_PROFILES,
+                          backend="cuda")
+    cuda_hits = cuda.search(seqs)
+    host = SearchPipeline(profiles, device=device, Z=N_PROFILES, domZ=N_PROFILES,
+                          use_accelerator=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    before = (dict(_build.launches), torch.cuda.memory_allocated(device))
+    t0 = time.perf_counter()
+    host_hits = host.search(seqs)
+    seconds = time.perf_counter() - t0
+    require(dict(_build.launches) == before[0], "the host path launched a kernel")
+    require(torch.cuda.max_memory_allocated(device) == before[1],
+            "the host path allocated device memory")
+    pairs = len(seqs) * len(profiles)
+    print(f"# 9b host path: {len(seqs)} proteins x {len(profiles)} profiles, {seconds:.3f} s, "
+          f"{seconds / pairs!r} s a pair; stage_counts {json.dumps(host.stage_counts)}; "
+          f"kernels' stage_counts {json.dumps(cuda.stage_counts)}", flush=True)
+    by_key = {(h.sequence_index, h.profile.name): h for h in host_hits}
+    missing = [h for h in cuda_hits if (h.sequence_index, h.profile.name) not in by_key]
+    for h in missing:
+        gates = gate_values(host, h.profile, seqs[h.sequence_index], N_PROFILES, N_PROFILES)
+        near = {k: abs(v / t - 1.0) <= 1e-3 for k, (v, t) in gates.items()}
+        print(f"# 9b kernel hit {(h.sequence_index, h.profile.name)} not reported by the host "
+              f"path; float64 gate values (value, threshold): {json.dumps(gates)}", flush=True)
+        require(any(near.values()), f"9b: kernel hit {(h.sequence_index, h.profile.name)} "
+                                    f"is no host hit and no gate value is near its threshold")
+    worst, moved = 0.0, 0
+    for h in cuda_hits:
+        other = by_key.get((h.sequence_index, h.profile.name))
+        if other is None:
+            continue
+        worst = max(worst, abs(h.score - other.score))
+        moved += sum(
+            (a.ienv, a.jenv, a.target_from, a.target_to, a.hmm_from, a.hmm_to)
+            != (b.ienv, b.jenv, b.target_from, b.target_to, b.hmm_from, b.hmm_to)
+            for a, b in zip(h.domains, other.domains)) + abs(len(h.domains) - len(other.domains))
+    print(f"# 9b {len(cuda_hits)} kernel hits, {len(host_hits)} host hits "
+          f"({len(host_hits) - len(cuda_hits) + len(missing)} beyond the kernels' filters, "
+          f"{len(missing)} kernel hits near a gate); common hits' scores within {worst!r} bits; "
+          f"{moved} domains whose coordinates differ", flush=True)
+    require(cuda_hits and worst <= 5e-3, f"9b: scores differ by {worst} bits")
+
+
+def phase_sharded_search(device, state):
+    """9c: phase 3's search over two slots of the card, and pinned to it."""
+    from gecco_tpu_torch import _build
+    from gecco_tpu_torch.hmm.pipeline import SearchPipeline
+    from gecco_tpu_torch.parallel import shard_sequences
+
+    profiles, seqs = state["profiles"], state["seqs"]
+    options = dict(device=device, Z=N_PROFILES, domZ=N_PROFILES, backend="cuda")
+    alone = {}
+    for shard in shard_sequences(seqs, 2):
+        pipeline = SearchPipeline(profiles, **options)
+        _ = pipeline.bank
+        _build.reset_launches()
+        pipeline.search([seqs[i] for i in shard])
+        for name, count in _build.launches.items():
+            alone[name] = alone.get(name, 0) + count
+    multi = SearchPipeline(profiles, devices=[device, device], **options)
+    multi.search(seqs)  # uploads each shard's bank
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    hits = multi.search(seqs)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    print(f"# 9c sharded search (two slots of {device}): {seconds:.3f} s against phase 3's "
+          f"{state['search_s']:.3f} s; stage_devices {multi.stage_devices}; stage_seconds "
+          f"{json.dumps(multi.stage_seconds)}; launches {json.dumps(launches)}, the two shards "
+          f"alone {json.dumps(alone)}", flush=True)
+    require(multi.stage_devices == 2, f"stage_devices {multi.stage_devices}")
+    require(launches == alone, "the sharded search's launches differ from its shards' alone")
+    require(multi.stage_counts == state["search_counts"],
+            f"sharded funnel {multi.stage_counts} != phase 3's {state['search_counts']}")
+    same_hits(hits, state["search_hits"], "9c sharded")
+    pinned = SearchPipeline(profiles, devices=[device], **options)
+    same_hits(pinned.search(seqs), state["search_hits"], "9c pinned")
+    require(pinned.stage_devices == 1 and pinned.stage_counts == state["search_counts"],
+            f"pinned funnel {pinned.stage_counts}")
+    print(f"# 9c pinned to [{device}]: phase 3's {len(hits)} hits", flush=True)
+
+
+def same_hits(hits, records, label):
+    """``hits`` against :func:`hit_record`s: the same hits in the same order,
+    scores within 1e-4 bits, domain coordinates equal, domain bits 1e-2."""
+    got = [hit_record(h) for h in hits]
+    require([r[:2] for r in got] == [r[:2] for r in records], f"{label}: hits differ")
+    for a, b in zip(got, records):
+        require(abs(a[2] - b[2]) <= 1e-4, f"{label}: score {a[:3]} != {b[2]}")
+        require(a[3] == b[3], f"{label}: domain coordinates of {a[:2]} differ")
+        require(all(abs(x - y) <= 1e-2 for x, y in zip(a[4], b[4])),
+                f"{label}: domain bits of {a[:2]} differ")
+
+
+def card_mesh(device, data, model):
+    """A ``(data, model)`` mesh whose every slot is ``device``."""
+    from gecco_tpu_torch.parallel import Mesh
+
+    grid = numpy.empty(data * model, dtype=object)
+    grid[:] = [device] * (data * model)
+    return Mesh(grid.reshape(data, model))
+
+
+def phase_sharded_scores(device, state):
+    """9d: ``sharded_forward_scores`` on a 2 x 2 mesh of the card."""
+    from gecco_tpu_torch.hmm.kernels import SeqPack, dense_scores
+    from gecco_tpu_torch.parallel import sharded_forward_scores
+
+    bank, seqs = state["bank"], state["seqs"][:DENSE_PROTEINS]
+    pack = SeqPack(seqs, device)
+    for semiring in ("forward", "viterbi"):
+        viterbi = semiring == "viterbi"
+        t0 = time.perf_counter()
+        got = sharded_forward_scores(bank.host, seqs, card_mesh(device, 2, 2), viterbi=viterbi)
+        seconds = time.perf_counter() - t0
+        want = dense_scores(pack, bank, viterbi=viterbi).cpu().numpy()
+        finite = numpy.isfinite(want)
+        require(numpy.array_equal(numpy.isfinite(got), finite), f"9d {semiring}: infinities")
+        err = float(numpy.abs(got[finite] - want[finite]).max())
+        print(f"# 9d sharded_forward_scores ({semiring}, 2 x 2 slots of {device}, "
+              f"{len(seqs)} proteins x {bank.P} profiles): {seconds:.3f} s, max abs {err!r} "
+              f"nats from one dense_scores call (tol 1e-4)", flush=True)
+        require(err <= 1e-4, f"9d {semiring}: {err} nats from one dense_scores call")
+
+
+def phase_train_step(device, state):
+    """9e: ``crf_train_step`` on a 2-slot data mesh of the card over 8a's
+    windows, against the 1-slot step."""
+    from gecco_tpu_torch.parallel import crf_train_step
+
+    idx, y, A = state["windows"]
+    results = {}
+    for slots in (1, 2):
+        step, params = crf_train_step(card_mesh(device, slots, 1))(A)
+        t0 = time.perf_counter()
+        params, loss = step(params, idx, y, TRAIN_STEP_LR)
+        torch.cuda.synchronize()
+        results[slots] = (params, float(loss), time.perf_counter() - t0)
+    (one, loss_one, s_one), (two, loss_two, s_two) = results[1], results[2]
+    rel = abs(loss_two - loss_one) / abs(loss_one)
+    err = max(float((a - b).abs().max()) for a, b in zip(one, two))
+    print(f"# 9e crf_train_step over {idx.shape[0]} windows (vocabulary {A}, lr "
+          f"{TRAIN_STEP_LR}): 1 slot loss {loss_one!r} in {s_one:.3f} s, 2 slots {loss_two!r} "
+          f"in {s_two:.3f} s; loss {rel!r} relative, parameters {err!r} absolute apart",
+          flush=True)
+    require(numpy.isfinite(loss_one) and rel <= 1e-5 and err <= 1e-5,
+            f"9e: the 2-slot step differs from the 1-slot step ({rel}, {err})")
+
+
+def phase_cli_options(device, state, out):
+    """9f: ``run --profile DIR`` and ``run --devices 1`` on phase 7's genome."""
+    from gecco_tpu_torch.cli import main
+
+    tmp = state["workdir"]
+
+    def text(*parts):
+        with open(os.path.join(*parts)) as f:
+            return f.read()
+
+    def run(name, extra):
+        target = os.path.join(tmp, name)
+        t0 = time.perf_counter()
+        code = main(["run", "-g", state["genome_path"], "--hmm", state["bank_path"], "-o",
+                     target, "--device", device.type, "--force-tsv", *extra])
+        print(f"# 9f run {' '.join(extra)}: exit {code} in {time.perf_counter() - t0:.3f} s",
+              flush=True)
+        require(code == 0, f"run {extra} exited {code}")
+        return target
+
+    traces = os.path.join(tmp, "trace")
+    profiled = run("profiled", ["--profile", traces])
+    found = [f for f in os.listdir(traces) if f.endswith(".pt.trace.json")]
+    require(len(found) == 1, f"run --profile wrote {found}")
+    with open(os.path.join(traces, found[0])) as f:
+        trace = json.load(f)
+    kernels = [e for e in trace["traceEvents"] if e.get("cat") == "kernel"]
+    names = {e.get("name", "") for e in kernels}
+    out["device_ms"] = sum(float(e.get("dur", 0.0)) for e in kernels) / 1e3
+    print(f"# 9f trace {found[0]}: {os.path.getsize(os.path.join(traces, found[0]))} bytes, "
+          f"{len(kernels)} kernel launches, {len(names)} kernel names, kernel A's "
+          f"{sum('ssv_kernel' in n for n in names)}", flush=True)
+    require(any("ssv_kernel" in n for n in names), "the trace names no ssv_kernel")
+    require(text(profiled, "genome.clusters.tsv") == text(state["run_dir"], "genome.clusters.tsv"),
+            "run --profile gives another clusters table than phase 7's")
+    stray = [os.path.join(folder, f) for folder, _dirs, files in os.walk(tmp) for f in files
+             if f.endswith(".pt.trace.json") and folder != traces]
+    require(not stray, f"a run without --profile wrote a trace: {stray}")
+    one = run("devices1", ["--devices", "1"])
+    for kind in ("genes", "features", "clusters"):
+        require(text(one, f"genome.{kind}.tsv") == text(state["run_dir"], f"genome.{kind}.tsv"),
+                f"run --devices 1 gives another {kind} table than phase 7's")
+
+
+def phase_modules(device, state):
+    import importlib.util
+
+    with sub_phase("a torch_check"):
+        spec = importlib.util.spec_from_file_location(
+            "torch_check", os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                                        "torch_check.py"))
+        check = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(check)
+        check.run(device)
+    with sub_phase("b host path"):
+        phase_host_path(device, state)
+    with sub_phase("c sharded search"):
+        phase_sharded_search(device, state)
+    with sub_phase("d sharded scores"):
+        phase_sharded_scores(device, state)
+    with sub_phase("e train step"):
+        phase_train_step(device, state)
+    with sub_phase("f cli", traced=False) as out:
+        phase_cli_options(device, state, out)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1855,6 +2177,8 @@ def main():
             phase_cli(device, state)
         with Phase("8 train"):
             phase_train(device, state)
+        with Phase("9 modules"):
+            phase_modules(device, state)
 
     loaded = sorted(name for name, module in sys.modules.items()
                     if module is not None and name.split(".")[0] in ("jax", "gecco_tpu"))

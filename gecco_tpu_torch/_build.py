@@ -7,8 +7,10 @@ sources and flags and written under ``gecco_tpu_torch/_build/``, so a
 checkout builds once and a source change rebuilds.  A failed build
 raises; nothing falls back to the plain versions.
 
-Each kernel wrapper counts its launches in :data:`launches`, so a run
-can show that the main path went through the kernels.
+Each kernel wrapper counts its launches in :data:`launches` through
+:func:`count_launch`, under a lock, so that a run can show that the main
+path went through the kernels, also when several threads launch (a
+sharded search, ``SearchPipeline(devices=...)``).
 """
 
 import ctypes
@@ -20,7 +22,8 @@ import tempfile
 import threading
 from typing import Dict, Optional
 
-__all__ = ["library", "launches", "reset_launches", "check", "resource_usage", "FLAGS"]
+__all__ = ["library", "launches", "count_launch", "reset_launches", "check", "resource_usage",
+           "FLAGS"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
@@ -81,12 +84,21 @@ _SIGNATURES.update({
 })
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _library: Optional[ctypes.CDLL] = None
 
 
+def count_launch(name: str) -> None:
+    """Add one to kernel ``name``'s launches (a read, an add and a write,
+    which threads launching side by side must not interleave)."""
+    with _count_lock:
+        launches[name] += 1
+
+
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    with _count_lock:
+        for name in launches:
+            launches[name] = 0
 
 
 def _sources():

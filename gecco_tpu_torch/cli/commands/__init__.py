@@ -1,7 +1,9 @@
 """The port's CLI command tree and its dependency-injected ``main``.
 
 Port of ``gecco_tpu.cli.commands.main`` with its six subcommands.
-Unlike the JAX CLI it sets up no compilation cache and no XLA trace.
+``--profile DIR`` wraps the command in a ``torch.profiler`` trace
+(:func:`gecco_tpu_torch.profiling.device_trace`) where the JAX CLI takes
+an XLA trace; unlike the JAX CLI it sets up no compilation cache.
 """
 
 import argparse
@@ -60,7 +62,7 @@ def main(
 ) -> int:
     """Run the command line interface; returns a POSIX exit code."""
     from ...crf import ClusterCRF
-    from ...profiling import TIMER
+    from ...profiling import TIMER, device_trace
     from ...types import TypeClassifier
 
     crf_type = crf_type or ClusterCRF
@@ -92,7 +94,8 @@ def main(
     warnings.showwarning = logger.showwarnings  # type: ignore[assignment]
     try:
         TIMER.reset()
-        code = args.run(args, logger, crf_type, classifier_type, default_hmms)
+        with device_trace(getattr(args, "profile", None)):
+            code = args.run(args, logger, crf_type, classifier_type, default_hmms)
         for name, (calls, total) in TIMER.summary().items():
             logger.info(f"timing: {name}: {total:.3f}s ({calls} calls)", level=2)
         return code

@@ -434,12 +434,23 @@ def _disentangle(gene):
 @timed("annotate-domains")
 def annotate_domains(
     logger, genes: List, *,
-    hmm_paths: List, default_hmms: Iterable, device, backend: str = "cuda",
-    whitelist=None, disentangle: bool = False, jobs: int = 0, bit_cutoffs=None,
-    e_filter=None, p_filter=None,
+    hmm_paths: List, default_hmms: Iterable, device, backend: str = "auto",
+    devices=None, whitelist=None, disentangle: bool = False, jobs: int = 0,
+    bit_cutoffs=None, e_filter=None, p_filter=None,
 ) -> List:
+    import torch
+
     from ...hmm import ProfileHMMAnnotator
 
+    if devices is not None:
+        if torch.device(device).type != "cuda":
+            raise ValueError("--devices shards the search over cards; it cannot "
+                             "be used with --device cpu")
+        if devices != "all":
+            count = torch.cuda.device_count()
+            if int(devices) > count:
+                raise ValueError(f"--devices {devices}: the machine has {count} cards")
+            devices = [torch.device("cuda", i) for i in range(int(devices))]
     logger.info("Running", f"profile-HMM domain annotation on {device}", level=1)
     hmms = list(custom_hmms(hmm_paths) if hmm_paths else default_hmms)
     if not hmms:
@@ -450,7 +461,7 @@ def annotate_domains(
     for hmm in hmms:
         logger.info("Starting", f"annotation with {hmm.id} v{hmm.version}", level=2)
         genes = ProfileHMMAnnotator(
-            hmm, jobs, whitelist, device=device, backend=backend,
+            hmm, jobs, whitelist, backend=backend, devices=devices, device=device,
         ).run(genes, bit_cutoffs=bit_cutoffs)
         logger.success("Finished", f"annotation with {hmm.id} v{hmm.version}", level=2)
 

@@ -2,12 +2,16 @@
 
 Copies of the ``gecco_tpu.cli.commands._parser`` groups (reference:
 ``gecco/cli/commands/_parser.py``), with the same flags and defaults
-(``-W 5``, ``--c1 0.15``, ``--c2 0.15``, ``--seed 42``), except that the
-annotation group replaces ``--backend {auto,pallas,xla}`` and
-``--devices`` with an explicit ``--device {cuda,cpu}`` and ``--backend
-{cuda,torch}``, that ``predict``, ``train`` and ``cv`` take the same
-``--device`` (:func:`group_device`), and that the common group has no
-``--profile`` (the XLA trace).
+(``-W 5``, ``--c1 0.15``, ``--c2 0.15``, ``--seed 42``).  What differs:
+
+* the annotation group names the engines ``--backend {auto,cuda,torch}``
+  (``auto``: the CUDA kernels on a card, plain PyTorch on the CPU) where
+  JAX names ``{auto,pallas,xla}``;
+* it adds ``--device {cuda,cpu}`` (default ``cuda``), the device of the
+  search and the CRF, which ``predict``, ``train`` and ``cv`` take too
+  (:func:`group_device`); ``--devices all|N`` takes the first N cards of
+  the machine, and is refused with ``--device cpu``;
+* ``--profile DIR`` records a ``torch.profiler`` trace, not an XLA one.
 """
 
 import argparse
@@ -39,6 +43,8 @@ def configure_common(parser: argparse.ArgumentParser, defaults: Dict[str, object
                         help="Increase verbosity (-v, -vv).")
     parser.add_argument("-q", "--quiet", action="count", default=0,
                         help="Silence most of the log output.")
+    parser.add_argument("--profile", metavar="DIR", default=defaults.get("--profile"),
+                        help="Record a PyTorch profiler trace of the whole command into DIR.")
 
 
 def group_input_sequences(parser, defaults: Dict[str, object], short: bool = True,
@@ -94,10 +100,30 @@ def group_annotation(parser, defaults: Dict[str, object]) -> None:
                        default=defaults.get("--disentangle", False),
                        help="Keep only the most significant domain among overlapping annotations.")
     _add_device(group, defaults, "the profile-HMM search and the CRF decode")
-    group.add_argument("--backend", choices=("cuda", "torch"),
-                       default=defaults.get("--backend", "cuda"),
-                       help="Search engine: the CUDA kernels (plain PyTorch on a "
-                            "cpu device), or plain PyTorch everywhere.")
+    group.add_argument("--backend", choices=("auto", "cuda", "torch"),
+                       default=defaults.get("--backend", "auto"),
+                       help="Search engine (auto: the CUDA kernels on a card, plain "
+                            "PyTorch on the CPU; torch: plain PyTorch everywhere).")
+    group.add_argument("--devices", type=_devices_value,
+                       default=defaults.get("--devices", None),
+                       help="Shard the search batch over the machine's cards: "
+                            "'all', or a positive card count (data parallelism "
+                            "within one process; default: one device).")
+
+
+def _devices_value(value: str):
+    """``--devices`` argument: 'all' or a positive integer."""
+    if value == "all":
+        return value
+    try:
+        count = int(value)
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"expected 'all' or a positive integer, got {value!r}")
+    if count < 1:
+        raise argparse.ArgumentTypeError(
+            f"expected 'all' or a positive integer, got {value!r}")
+    return count
 
 
 def _add_device(group, defaults: Dict[str, object], what: str) -> None:

@@ -46,7 +46,7 @@ def run(args, logger, crf_type, classifier_type, default_hmms) -> int:
     genes = _common.annotate_domains(
         logger, genes,
         hmm_paths=args.hmms, default_hmms=default_hmms(),
-        device=device, backend=args.backend,
+        device=device, backend=args.backend, devices=args.devices,
         whitelist=None, disentangle=args.disentangle, jobs=args.jobs,
         bit_cutoffs=args.bit_cutoffs, e_filter=args.e_filter, p_filter=args.p_filter,
     )

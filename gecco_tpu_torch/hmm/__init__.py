@@ -5,7 +5,8 @@ Port of ``gecco_tpu.hmm``: the ``HMM`` library descriptor, the
 whitelist and relabelling of ``ProfileHMMAnnotator`` are copied as
 they are; the search runs on
 :class:`gecco_tpu_torch.hmm.pipeline.SearchPipeline` on an explicit
-device.
+device, with the JAX annotator's ``use_accelerator``, ``backend`` and
+``devices`` passed on.
 """
 
 import abc
@@ -77,13 +78,17 @@ class ProfileHMMAnnotator(DomainAnnotator):
         hmm: HMM,
         cpus: Optional[int] = None,
         whitelist: Optional[Container[str]] = None,
+        use_accelerator: bool = True,
+        backend: str = "auto",
+        devices=None,
         *,
         device,
-        backend: str = "cuda",
     ) -> None:
         super().__init__(hmm, cpus=cpus, whitelist=whitelist)
-        self.device = device
+        self.use_accelerator = use_accelerator
         self.backend = backend
+        self.devices = devices
+        self.device = device
         self._profiles: Optional[List[SearchProfile]] = None
 
     def _load_profiles(self) -> List[SearchProfile]:
@@ -110,7 +115,9 @@ class ProfileHMMAnnotator(DomainAnnotator):
             Z=self.hmm.size,
             domZ=self.hmm.size,
             bit_cutoffs=bit_cutoffs,
+            use_accelerator=self.use_accelerator,
             backend=self.backend,
+            devices=self.devices,
         )
         interpro = InterPro.load()
         for hit in pipeline.search(sequences):

@@ -1,7 +1,7 @@
 """The profile bank as device tensors.
 
 :class:`ProfileBank` and :func:`bias_logratio` are copies of
-``gecco_tpu.hmm.batch.ProfileBank`` (the numpy bank, without its
+``gecco_tpu.hmm.batch.ProfileBank`` (the numpy bank and its
 ``select``) and ``gecco_tpu.hmm.kernels.bias_logratio`` (the
 composition-bias log ratios).  :class:`TorchBank` holds the device-side
 tensors the kernels derive from it: the probability-space bank and the
@@ -141,6 +141,31 @@ class ProfileBank:
             msv_mu=stats["msv_mu"], msv_lambda=stats["msv_lambda"],
             vit_mu=stats["vit_mu"], vit_lambda=stats["vit_lambda"],
             **arrays,
+        )
+
+    def select(self, indices: Sequence[int], lane: int = 128) -> "ProfileBank":
+        """Compact a sub-bank of the given profile rows (host-side gather)."""
+        idx = numpy.asarray(list(indices), dtype=numpy.int64)
+        Mp = _round_up(max(8, int(self.lengths[idx].max())), lane) if len(idx) else lane
+
+        def cols(a: "numpy.ndarray") -> "numpy.ndarray":
+            taken = a[..., idx, : min(Mp, a.shape[-1])]
+            if taken.shape[-1] < Mp:  # widen with zero pad columns
+                pad = [(0, 0)] * (taken.ndim - 1) + [(0, Mp - taken.shape[-1])]
+                taken = numpy.pad(taken, pad)
+            return numpy.ascontiguousarray(taken)
+
+        return ProfileBank(
+            e_odds=cols(self.e_odds),
+            tmm=cols(self.tmm), tim=cols(self.tim), tdm=cols(self.tdm),
+            tmi=cols(self.tmi), tii=cols(self.tii),
+            tmd=cols(self.tmd), tdd=cols(self.tdd), bm=cols(self.bm),
+            msv_tbm=self.msv_tbm[idx], lengths=self.lengths[idx],
+            names=[self.names[i] for i in idx],
+            accessions=[self.accessions[i] for i in idx],
+            fwd_tau=self.fwd_tau[idx], fwd_lambda=self.fwd_lambda[idx],
+            msv_mu=self.msv_mu[idx], msv_lambda=self.msv_lambda[idx],
+            vit_mu=self.vit_mu[idx], vit_lambda=self.vit_lambda[idx],
         )
 
 

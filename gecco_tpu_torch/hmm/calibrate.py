@@ -3,8 +3,12 @@
 The fit of ``gecco_tpu.hmm.calibrate.calibrate`` (fixed ``lambda = log
 2``, Gumbel location MLE for MSV and Viterbi, exponential tail anchored
 at the ``tailp`` quantile for Forward), with the three scores of every
-(random sequence, profile) pair taken from kernels A, B and C in
-all-pairs mode (their plain versions for a bank on the CPU).
+(random sequence, profile) pair taken as the JAX package's Pallas branch
+takes them: the SSV scores from kernel A, the Viterbi and Forward scores
+from the dense all-pairs kernel H in its two semirings
+(:func:`~.kernels.dense_scores`, JAX's ``ViterbiKernel`` and
+``ForwardKernel``).  ``backend="auto"`` takes the kernels on a card and
+their plain versions on the CPU; ``"torch"`` takes the plain versions.
 """
 
 import math
@@ -12,12 +16,11 @@ from typing import List, Sequence
 
 import numpy
 
-from .._device import resolve_device
+from .._device import resolve_backend, resolve_device
 from .bank import TorchBank
 from .io import BACKGROUND_F
-from .kernels import SeqPack, ssv_filter, viterbi_pairs
+from .kernels import SeqPack, dense_scores, dense_scores_plain, ssv_filter, ssv_filter_plain
 from .profile import SearchProfile, null1_score
-from .stream import forward_pairs
 
 __all__ = ["calibrate", "background_sequences"]
 
@@ -40,6 +43,7 @@ def calibrate(
     L: int = 256,
     seed: int = 0,
     tailp: float = 0.04,
+    backend: str = "auto",
 ) -> List[SearchProfile]:
     """Fit MSV/VITERBI/FORWARD stats in place; returns ``profiles``.
 
@@ -51,15 +55,14 @@ def calibrate(
     if not profiles:
         return profiles
     device = resolve_device(device)
+    plain = resolve_backend(backend, device) == "torch"
     seqs = background_sequences(n, L, seed)
     bank = TorchBank.build(profiles, device)
     pack = SeqPack(seqs, device)
-    P = len(profiles)
-    s_idx = numpy.repeat(numpy.arange(n, dtype=numpy.int64), P)
-    p_idx = numpy.tile(numpy.arange(P, dtype=numpy.int64), n)
-    ssv_sc = ssv_filter(pack, bank).cpu().numpy()
-    vit = viterbi_pairs(pack, bank, s_idx, p_idx).cpu().numpy().reshape(n, P)
-    fwd = forward_pairs(pack, bank, s_idx, p_idx).cpu().numpy().reshape(n, P)
+    ssv, dense = (ssv_filter_plain, dense_scores_plain) if plain else (ssv_filter, dense_scores)
+    ssv_sc = ssv(pack, bank).cpu().numpy()
+    vit = dense(pack, bank, viterbi=True).cpu().numpy()
+    fwd = dense(pack, bank).cpu().numpy()
     null = null1_score(L)
     bits_ssv = (ssv_sc.astype(numpy.float64) - null) / LOG2   # [n, P]
     bits_vit = (vit.astype(numpy.float64) - null) / LOG2

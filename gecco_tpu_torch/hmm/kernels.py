@@ -234,7 +234,7 @@ def _launch_filter(fn_name: str, counter: str, pack: SeqPack, bank: TorchBank,
                 out.data_ptr(), stream,
             )
             _build.check(code, fn_name)
-            _build.launches[counter] += 1
+            _build.count_launch(counter)
     return out
 
 
@@ -413,7 +413,7 @@ def launch_rows(fn_name: str, counter: str, pack: SeqPack, bank: TorchBank,
             *[t.data_ptr() if isinstance(t, torch.Tensor) else t for t in tail], stream,
         )
     _build.check(code, fn_name)
-    _build.launches[counter] += 1
+    _build.count_launch(counter)
 
 
 def check_ranges(pack: SeqPack, seq_idx, ranges):
@@ -740,7 +740,7 @@ def dense_scores(pack: SeqPack, bank: TorchBank, *, viterbi: bool = False) -> to
                 int(viterbi), DENSE_TILE, out.data_ptr(), stream,
             )
             _build.check(code, "gecco_dense_scores")
-            _build.launches["dense_scores"] += 1
+            _build.count_launch("dense_scores")
     return out
 
 

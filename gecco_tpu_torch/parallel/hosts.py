@@ -1,15 +1,54 @@
-"""Contig sharding for multi-host runs.
+"""Multi-process start-up and contig sharding for multi-host runs.
 
-A copy of ``contig_shard`` and ``parse_shard`` from
-``gecco_tpu.parallel.hosts``: a deterministic, length-balanced
-assignment of contigs to processes, identical on every host (no
-communication); the CLI's ``--shard K/N`` keeps one shard.  Process
-start-up across hosts is not ported yet (``ROADMAP.md`` Queue 1 item 12).
+* :func:`initialize` — the ``torch.distributed`` bootstrap of a group of
+  processes (the twin of ``gecco_tpu.parallel.hosts.initialize`` on
+  ``jax.distributed``); nothing for a single process;
+* :func:`contig_shard` and :func:`parse_shard` — copies of the JAX
+  package's: a deterministic, length-balanced assignment of contigs to
+  processes, identical on every host (no communication); the CLI's
+  ``--shard K/N`` keeps one shard.
 """
 
+import datetime
 from typing import List, Optional, Sequence, Tuple
 
-__all__ = ["contig_shard", "parse_shard"]
+__all__ = ["initialize", "contig_shard", "parse_shard"]
+
+
+def initialize(
+    coordinator_address: Optional[str] = None,
+    num_processes: Optional[int] = None,
+    process_id: Optional[int] = None,
+    *,
+    timeout_s: float = 600.0,
+) -> Tuple[int, int]:
+    """Join a ``torch.distributed`` group and return ``(rank, world size)``.
+
+    ``coordinator_address`` is ``host:port`` (``tcp://`` is prepended) or
+    a full init method such as ``file:///shared/store``.  The backend is
+    ``nccl`` on a machine with a card and ``gloo`` without one;
+    ``timeout_s`` bounds the wait for the other processes.  With no address and no group up this does nothing and
+    returns ``(0, 1)``; with a group up it returns that group's rank and
+    size.
+    """
+    import torch
+    import torch.distributed as dist
+
+    if not dist.is_available():
+        if coordinator_address is not None:
+            raise RuntimeError("this PyTorch build has no torch.distributed")
+        return 0, 1
+    if coordinator_address is not None and not dist.is_initialized():
+        method = coordinator_address if "://" in coordinator_address \
+            else f"tcp://{coordinator_address}"
+        dist.init_process_group(
+            "nccl" if torch.cuda.is_available() else "gloo",
+            init_method=method, world_size=num_processes, rank=process_id,
+            timeout=datetime.timedelta(seconds=timeout_s),
+        )
+    if dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
 
 
 def contig_shard(

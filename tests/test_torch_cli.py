@@ -405,14 +405,14 @@ def _options(configure, name):
 
 @pytest.mark.parametrize("command", COMMANDS)
 def test_help_of_every_subcommand(command):
-    """``--help`` of each subcommand, and its options are the JAX CLI's but
-    for the device: ``--device`` in place of ``--devices`` and on the CRF's
-    subcommands, and no ``--profile`` (the XLA trace)."""
+    """``--help`` of each subcommand, and its options are the JAX CLI's
+    (``--devices``, ``--profile`` and ``--backend`` included) but for the
+    device: ``--device``, on the search's and the CRF's subcommands."""
     stream = io.StringIO()
     assert main([command, "--help"], stream) == 0
     assert stream.getvalue().startswith(f"usage: gecco-tpu-torch {command}")
     mine = _options(configure_parser, command) - {"--device"}
-    theirs = _options(jax_configure_parser, command) - {"--devices", "--profile"}
+    theirs = _options(jax_configure_parser, command)
     assert mine == theirs
     if command != "convert":
         assert "--device" in _options(configure_parser, command)

@@ -516,6 +516,64 @@ def test_search_cuda_matches_torch(workload, device, max_filter):
         (h.sequence_index, h.profile.name) for h in hits_b]
 
 
+def test_sharded_search_on_one_card_matches_single(workload, device):
+    """Two shards on one card, one thread each: the one-device search's
+    hits and funnel, and the launches the two shards make alone."""
+    from gecco_tpu_torch.parallel import shard_sequences
+
+    profiles, seqs, _pack, _bank = workload
+    single = SearchPipeline(profiles, device=device, backend="cuda")
+    expected = single.search(seqs)
+    shards = shard_sequences(seqs, 2)
+    _build.reset_launches()
+    for shard in shards:
+        alone = SearchPipeline(profiles, device=device, backend="cuda", Z=len(seqs))
+        alone.search([seqs[i] for i in shard])
+    torch.cuda.synchronize()
+    separate = dict(_build.launches)
+    multi = SearchPipeline(profiles, device=device, backend="cuda",
+                           devices=[device, device])
+    _build.reset_launches()
+    hits = multi.search(seqs)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == separate and separate["ssv_filter"] > 0
+    assert multi.stage_devices == 2 and multi.stage_counts == single.stage_counts
+    assert [(h.sequence_index, h.profile.name) for h in hits] == [
+        (h.sequence_index, h.profile.name) for h in expected]
+    for a, b in zip(hits, expected):
+        assert abs(a.score - b.score) <= 1e-4
+
+
+def test_host_path_launches_nothing(workload, device):
+    profiles, seqs, _pack, _bank = workload
+    pipeline = SearchPipeline(profiles, device=device, use_accelerator=False)
+    before = (dict(_build.launches), torch.cuda.memory_allocated(device))
+    hits = pipeline.search(seqs[:3])
+    assert (dict(_build.launches), torch.cuda.memory_allocated(device)) == before
+    assert pipeline._torch_bank is None
+    assert all(numpy.isfinite(h.score) for h in hits)
+
+
+def test_calibrate_launches_kernels_a_and_h(device):
+    """``calibrate`` on the card: kernel A once a width class, kernel H
+    twice (Viterbi, Forward), no B or C; the stats of the plain versions."""
+    from gecco_tpu_torch.hmm.calibrate import calibrate
+
+    mine = synthetic_profiles(6, min_length=30, max_length=600, seed=4)
+    plain = synthetic_profiles(6, min_length=30, max_length=600, seed=4)
+    _build.reset_launches()
+    calibrate(mine, device=device, n=64, L=96)
+    torch.cuda.synchronize()
+    classes = len(TorchBank.build(mine, device).classes)
+    assert _build.launches["ssv_filter"] == classes
+    assert _build.launches["dense_scores"] == 2 * classes
+    assert _build.launches["viterbi_pairs"] == _build.launches["forward_pairs"] == 0
+    calibrate(plain, device=device, n=64, L=96, backend="torch")
+    for a, b in zip(mine, plain):
+        for key in ("MSV", "VITERBI", "FORWARD"):
+            assert abs(a.hmm.stats[key][0] - b.hmm.stats[key][0]) <= 1e-3, key
+
+
 @pytest.mark.parametrize("bias_filter", [True, False], ids=["bias", "nobias"])
 def test_search_msv_cuda_matches_torch(workload, device, bias_filter):
     profiles, seqs, _pack, _bank = workload
