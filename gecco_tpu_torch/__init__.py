@@ -24,6 +24,11 @@ Every entry point takes an explicit ``device``; nothing here picks a
 device on its own (see :mod:`gecco_tpu_torch._device`).
 """
 
+from .profiling import IMPORT as _IMPORT, TIMER as _TIMER
+
+#: the span of the process's imports, closed by ``gecco_tpu_torch.cli``
+IMPORT_SPAN = _TIMER.begin(_IMPORT)
+
 __version__ = "0.1.0"
 
 __all__ = ["__version__"]

@@ -10,7 +10,9 @@ raises; nothing falls back to the plain versions.
 Each kernel wrapper counts its launches in :data:`launches` through
 :func:`count_launch`, under a lock, so that a run can show that the main
 path went through the kernels, also when several threads launch (a
-sharded search, ``SearchPipeline(devices=...)``).
+sharded search, ``SearchPipeline(devices=...)``).  The first call of
+:func:`library` is the span ``load-kernels``, and each build counts one
+``kernel_builds`` (:data:`gecco_tpu_torch.profiling.TIMER`).
 """
 
 import ctypes
@@ -21,6 +23,8 @@ import subprocess
 import tempfile
 import threading
 from typing import Dict, Optional
+
+from .profiling import TIMER
 
 __all__ = ["library", "launches", "count_launch", "reset_launches", "check", "resource_usage",
            "FLAGS"]
@@ -148,28 +152,35 @@ def _compile(sources, target: str) -> None:
         os.replace(linked, target)
 
 
+def _open(target: str) -> ctypes.CDLL:
+    """Load the built library and declare its entry points."""
+    lib = ctypes.CDLL(target)
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The kernel library, built from ``csrc/`` on first call."""
     global _library
     with _lock:
         if _library is not None:
             return _library
-        sources = _sources()
-        digest = hashlib.sha256(" ".join(FLAGS).encode())
-        for path in sources:
-            with open(path, "rb") as f:
-                digest.update(os.path.basename(path).encode() + b"\0" + f.read())
-        os.makedirs(_BUILD, exist_ok=True)
-        target = os.path.join(_BUILD, f"libgecco_kernels_{digest.hexdigest()[:16]}.so")
-        if not os.path.exists(target):
-            _compile(sources, target)
-        lib = ctypes.CDLL(target)
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _library = lib
-        return lib
+        with TIMER.span("load-kernels"):
+            sources = _sources()
+            digest = hashlib.sha256(" ".join(FLAGS).encode())
+            for path in sources:
+                with open(path, "rb") as f:
+                    digest.update(os.path.basename(path).encode() + b"\0" + f.read())
+            os.makedirs(_BUILD, exist_ok=True)
+            target = os.path.join(_BUILD, f"libgecco_kernels_{digest.hexdigest()[:16]}.so")
+            if not os.path.exists(target):
+                TIMER.count("kernel_builds")
+                _compile(sources, target)
+            _library = _open(target)
+        return _library
 
 
 def resource_usage(source: str) -> str:

@@ -3,7 +3,9 @@
 Port of ``gecco_tpu.cli.commands.main`` with its six subcommands.
 ``--profile DIR`` wraps the command in a ``torch.profiler`` trace
 (:func:`gecco_tpu_torch.profiling.device_trace`) where the JAX CLI takes
-an XLA trace; unlike the JAX CLI it sets up no compilation cache.
+an XLA trace; unlike the JAX CLI it sets up no compilation cache.  At
+``-vv`` it prints the tree of spans and the counters
+(:meth:`gecco_tpu_torch.profiling.StageTimer.report`).
 """
 
 import argparse
@@ -96,8 +98,8 @@ def main(
         TIMER.reset()
         with device_trace(getattr(args, "profile", None)):
             code = args.run(args, logger, crf_type, classifier_type, default_hmms)
-        for name, (calls, total) in TIMER.summary().items():
-            logger.info(f"timing: {name}: {total:.3f}s ({calls} calls)", level=2)
+        for line in TIMER.report():
+            logger.info(line, level=2)
         return code
     except KeyboardInterrupt:
         logger.error("Interrupted")

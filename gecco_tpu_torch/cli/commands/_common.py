@@ -25,9 +25,17 @@ import numpy
 
 from ... import __version__
 from ..._meta import zopen
-from ...profiling import timed
+from ...profiling import TIMER, timed
 
 __all__ = []  # internal module
+
+
+@TIMER.span("init-device")
+def init_device(device):
+    """``--device`` resolved and checked (``_device.resolve_device``)."""
+    from ..._device import resolve_device
+
+    return resolve_device(device)
 
 
 # --- Output files -------------------------------------------------------------
@@ -46,6 +54,7 @@ def _base_name(genome) -> str:
     return base
 
 
+@TIMER.span("write-outputs")
 def write_genes_table(logger, genes, *, genome, output_dir) -> None:
     from ...model import GeneTable
 
@@ -55,6 +64,7 @@ def write_genes_table(logger, genes, *, genome, output_dir) -> None:
         GeneTable.from_genes(genes).dump(f)
 
 
+@TIMER.span("write-outputs")
 def write_feature_table(logger, genes, *, genome, output_dir) -> None:
     from ...model import FeatureTable
 
@@ -64,6 +74,7 @@ def write_feature_table(logger, genes, *, genome, output_dir) -> None:
         FeatureTable.from_genes(genes).dump(f)
 
 
+@TIMER.span("write-outputs")
 def write_cluster_table(logger, clusters, *, genome, output_dir) -> None:
     from ...model import ClusterTable
 
@@ -73,6 +84,7 @@ def write_cluster_table(logger, clusters, *, genome, output_dir) -> None:
         ClusterTable.from_clusters(clusters).dump(f)
 
 
+@TIMER.span("write-outputs")
 def write_clusters(logger, clusters, *, genome, output_dir, merge: bool = False) -> None:
     from ... import seqio
 
@@ -105,6 +117,7 @@ def sideload_configuration(args) -> dict:
     }
 
 
+@TIMER.span("write-outputs")
 def write_sideload_json(logger, clusters, *, genome, output_dir, configuration=None) -> None:
     """AntiSMASH v6 sideload JSON (layout per the reference golden
     ``tests/test_cli/data/BGC0001866.sideload.json``)."""
@@ -142,7 +155,8 @@ def write_sideload_json(logger, clusters, *, genome, output_dir, configuration=N
 
 # --- Load input ---------------------------------------------------------------
 
-def load_sequences(logger, genome, *, format: Optional[str]):
+@TIMER.span("read-inputs")
+def load_sequences(logger, genome, *, format: Optional[str]) -> List:
     from ... import seqio
 
     if format is not None:
@@ -154,11 +168,9 @@ def load_sequences(logger, genome, *, format: Optional[str]):
             raise RuntimeError(f"Failed to detect format of {str(genome)!r}")
         logger.success("Detected", "format of input as", repr(format), level=2)
     logger.info("Loading", "sequences from genomic file", repr(str(genome)), level=1)
-    n = 0
-    for record in seqio.parse(str(genome), format):
-        yield record
-        n += 1
-    logger.success(f"Loaded {n} sequences from {str(genome)!r}", level=1)
+    records = list(seqio.parse(str(genome), format))
+    logger.success(f"Loaded {len(records)} sequences from {str(genome)!r}", level=1)
+    return records
 
 
 def shard_sequences(logger, sequences: List, *, shard: Optional[str]) -> List:
@@ -176,15 +188,17 @@ def shard_sequences(logger, sequences: List, *, shard: Optional[str]) -> List:
     return [sequences[i] for i in keep]
 
 
-def load_genes(logger, table_path) -> Iterator:
+@TIMER.span("read-inputs")
+def load_genes(logger, table_path) -> List:
     from ...model import GeneTable
 
     logger.info("Loading", "genes table from file", repr(str(table_path)))
     with zopen(str(table_path)) as f:
         table = GeneTable.load(f)
-    yield from table.to_genes()
+    return list(table.to_genes())
 
 
+@TIMER.span("read-inputs")
 def load_features(logger, table_paths):
     from ...model import FeatureTable
 
@@ -310,6 +324,7 @@ def assign_sources(logger, sequences, genes: List, *, genome) -> Iterator:
         yield gene
 
 
+@TIMER.span("read-inputs")
 def load_clusters(logger, clusters):
     from ...model import ClusterTable
 
@@ -488,9 +503,11 @@ def predict_probabilities(logger, genes: List, *, model, pad: bool, crf_type, de
         logger.info("Loading", "embedded CRF pre-trained model", level=1)
     else:
         logger.info("Loading", "CRF pre-trained model from", repr(str(model)), level=1)
-    crf = crf_type.trained(model)
+    with TIMER.span("load-crf"):
+        crf = crf_type.trained(model)
     logger.info("Predicting", "cluster probabilities with the model", level=1)
-    return crf.predict_probabilities(genes, pad=pad, device=device)
+    with TIMER.span("decode"):
+        return crf.predict_probabilities(genes, pad=pad, device=device)
 
 
 @timed("extract-clusters")
@@ -510,6 +527,7 @@ def extract_clusters(
     return clusters
 
 
+@TIMER.span("load-models")
 def load_type_classifier(logger, *, model, classifier_type):
     if model is None:
         logger.info("Loading", "type classifier from embedded model", level=2)

@@ -7,7 +7,6 @@ on ``--device``.
 
 import argparse
 
-from ..._device import resolve_device
 from . import _common, _parser
 
 __all__ = ["configure_parser", "run"]
@@ -22,7 +21,7 @@ def configure_parser(parser: argparse.ArgumentParser, defaults) -> None:
 
 
 def run(args, logger, crf_type, classifier_type, default_hmms) -> int:
-    device = resolve_device(args.device)
+    device = _common.init_device(args.device)
     base = _common._base_name(args.genome)
     outputs = [f"{base}.features.tsv", f"{base}.genes.tsv"]
     _common.make_output_directory(logger, args.output_dir, outputs)

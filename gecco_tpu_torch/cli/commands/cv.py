@@ -17,7 +17,6 @@ import operator
 import pathlib
 import random
 
-from ..._device import resolve_device
 from . import _common, _parser
 
 __all__ = ["configure_parser", "run"]
@@ -112,7 +111,7 @@ def _report_fold(logger, fold, truth, predicted):
 def run(args, logger, crf_type, classifier_type, default_hmms) -> int:
     from ...model import Gene
 
-    device = resolve_device(args.device)
+    device = _common.init_device(args.device)
     _common.seed_rng(logger, args.seed)
     genes = list(_common.load_genes(logger, args.genes))
     features = _common.load_features(logger, args.features)

@@ -9,7 +9,6 @@ same tail as ``run`` (CRF on ``--device`` → refine → types → outputs).
 import argparse
 import operator
 
-from ..._device import resolve_device
 from . import _common, _parser
 
 __all__ = ["configure_parser", "run"]
@@ -27,7 +26,7 @@ def configure_parser(parser: argparse.ArgumentParser, defaults) -> None:
 
 
 def run(args, logger, crf_type, classifier_type, default_hmms) -> int:
-    device = resolve_device(args.device)
+    device = _common.init_device(args.device)
     base = _common._base_name(args.genome)
     outputs = [f"{base}.features.tsv", f"{base}.genes.tsv", f"{base}.clusters.tsv"]
     if args.antismash_sideload:

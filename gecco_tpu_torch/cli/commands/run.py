@@ -8,7 +8,6 @@ prediction → cluster table + GenBank files.
 
 import argparse
 
-from ..._device import resolve_device
 from . import _common
 from . import _parser
 
@@ -26,7 +25,7 @@ def configure_parser(parser: argparse.ArgumentParser, defaults) -> None:
 
 
 def run(args, logger, crf_type, classifier_type, default_hmms) -> int:
-    device = resolve_device(args.device)
+    device = _common.init_device(args.device)
     base = _common._base_name(args.genome)
     outputs = [f"{base}.features.tsv", f"{base}.genes.tsv", f"{base}.clusters.tsv"]
     if args.antismash_sideload:

@@ -17,7 +17,6 @@ import itertools
 import operator
 import os
 
-from ..._device import resolve_device
 from . import _common, _parser
 
 __all__ = ["configure_parser", "run"]
@@ -107,7 +106,7 @@ def _save_domain_compositions(logger, all_possible, clusters, *, output_dir) -> 
 
 
 def run(args, logger, crf_type, classifier_type, default_hmms) -> int:
-    device = resolve_device(args.device)
+    device = _common.init_device(args.device)
     _common.make_output_directory(logger, args.output_dir, [])
     _common.seed_rng(logger, args.seed)
 

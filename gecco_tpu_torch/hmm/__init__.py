@@ -19,6 +19,7 @@ from typing import Any, Callable, Container, Dict, Iterable, Iterator, List, Opt
 from .._meta import UniversalContainer
 from ..interpro import InterPro
 from ..model import Domain, Gene
+from ..profiling import TIMER
 from .io import encode_sequence, parse_hmmer3
 from .pipeline import SearchPipeline
 from .profile import SearchProfile, configure_local
@@ -93,12 +94,14 @@ class ProfileHMMAnnotator(DomainAnnotator):
 
     def _load_profiles(self) -> List[SearchProfile]:
         if self._profiles is None:
-            self._profiles = [
-                configure_local(raw)
-                for raw in parse_hmmer3(self.hmm.path)
-                if raw.accession is None
-                or self.hmm.relabel(raw.accession) in self.whitelist
-            ]
+            with TIMER.span("read-profiles"):
+                raws = [
+                    raw for raw in parse_hmmer3(self.hmm.path)
+                    if raw.accession is None
+                    or self.hmm.relabel(raw.accession) in self.whitelist
+                ]
+            with TIMER.span("configure-profiles"):
+                self._profiles = [configure_local(raw) for raw in raws]
         return self._profiles
 
     def run(
@@ -108,7 +111,8 @@ class ProfileHMMAnnotator(DomainAnnotator):
         bit_cutoffs: Optional[str] = None,
     ) -> List[Gene]:
         gene_index = list(genes)
-        sequences = [encode_sequence(str(g.protein.seq)) for g in gene_index]
+        with TIMER.span("encode-sequences"):
+            sequences = [encode_sequence(str(g.protein.seq)) for g in gene_index]
         pipeline = SearchPipeline(
             self._load_profiles(),
             device=self.device,
@@ -119,8 +123,18 @@ class ProfileHMMAnnotator(DomainAnnotator):
             backend=self.backend,
             devices=self.devices,
         )
+        hits = pipeline.search(sequences)
+        with TIMER.span("report-hits"):
+            self._report(gene_index, hits)
+        for key, value in pipeline.stage_counts.items():
+            TIMER.count(f"funnel.{key}", value)
+        TIMER.count("host_pairs", pipeline.host_pairs)
+        return gene_index
+
+    def _report(self, gene_index: List[Gene], hits) -> None:
+        """Append each reported domain to its gene's protein."""
         interpro = InterPro.load()
-        for hit in pipeline.search(sequences):
+        for hit in hits:
             accession = self.hmm.relabel(hit.profile.accession or hit.profile.name)
             entry = interpro.lookup(accession)
             for dom in hit.domains:
@@ -153,7 +167,6 @@ class ProfileHMMAnnotator(DomainAnnotator):
                         qualifiers=qualifiers,
                     )
                 )
-        return gene_index
 
 
 def embedded_hmms(directory: Optional[str] = None) -> Iterator[HMM]:

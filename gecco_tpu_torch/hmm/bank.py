@@ -22,6 +22,7 @@ from typing import List, Sequence, Tuple
 import numpy
 import torch
 
+from ..profiling import TIMER
 from .profile import SearchProfile
 
 __all__ = [
@@ -261,6 +262,8 @@ class TorchBank:
 
     @classmethod
     def from_numpy(cls, bank: ProfileBank, device) -> "TorchBank":
+        """Upload ``bank``, counting the bytes put on ``device`` as
+        ``bank_upload_bytes``."""
         e_log, trans_log = log_tensors(bank)
         trans = numpy.stack([
             bank.tmm, bank.tim, bank.tdm, bank.tmi, bank.tii,
@@ -270,15 +273,16 @@ class TorchBank:
             tbm = numpy.log(bank.msv_tbm).astype(numpy.float32)
         class_of = numpy.asarray(
             [width_class(int(m)) for m in bank.lengths], dtype=numpy.int64)
-        classes = [
-            (int(w), torch.as_tensor(
-                numpy.flatnonzero(class_of == w).astype(numpy.int32), device=device))
-            for w in sorted(set(class_of.tolist()))
-        ]
 
         def put(a):
-            return torch.as_tensor(numpy.ascontiguousarray(a), device=device)
+            a = numpy.ascontiguousarray(a)
+            TIMER.count("bank_upload_bytes", a.nbytes)
+            return torch.as_tensor(a, device=device)
 
+        classes = [
+            (int(w), put(numpy.flatnonzero(class_of == w).astype(numpy.int32)))
+            for w in sorted(set(class_of.tolist()))
+        ]
         e_odds = put(bank.e_odds)
         return cls(
             host=bank, device=e_odds.device,  # with its index: "cuda" -> "cuda:0"

@@ -43,6 +43,7 @@ import numpy
 import torch
 
 from .. import _build
+from ..profiling import TIMER
 from .bank import NEG, TorchBank
 from .profile import length_model, null1_score
 
@@ -50,6 +51,7 @@ __all__ = [
     "SeqPack", "ssv_filter", "ssv_filter_plain", "msv_filter", "msv_filter_plain", "msv_nodes",
     "msv_tile", "pack_mask", "viterbi_pairs", "viterbi_pairs_plain", "flatten_pairs", "pair_blocks",
     "pair_launches", "run_launches", "viterbi_launches", "dense_scores", "dense_scores_plain",
+    "to_host",
 ]
 
 LOG2 = math.log(2.0)
@@ -72,6 +74,13 @@ DENSE_WARP_WIDTH = 1024
 #: (``msv.cu``'s ``MSV_LANES``; 32 where not listed): a warp scores 32 / G
 #: sequences side by side
 MSV_LANES = {128: 4, 256: 8, 512: 16}
+
+
+def to_host(tensor: torch.Tensor) -> "numpy.ndarray":
+    """``tensor`` read back as a numpy array: a point where the host waits
+    for the device, counted as ``host_reads``."""
+    TIMER.count("host_reads")
+    return tensor.cpu().numpy()
 
 
 def dense_nodes(bank: "TorchBank") -> "numpy.ndarray":
@@ -360,7 +369,7 @@ def pack_mask(scores: torch.Tensor, pack: SeqPack, bank: TorchBank,
         null = null + torch.clamp(
             torch.logaddexp(torch.zeros_like(delta), delta) - LOG2, min=0.0)
     keep = scores >= null + torch.as_tensor(thr, device=bank.device)[None, :]
-    return keep.cpu().numpy()
+    return to_host(keep)
 
 
 # ---------------------------------------------------------------------------

@@ -44,15 +44,15 @@ is ``"cuda"`` on a card and ``"torch"`` on the CPU.  ``devices=``
 devices, one sub-pipeline and one thread each (a list may name one card
 twice); a one-device list pins the search to that device.
 ``stage_counts``, ``stage_seconds`` and ``stage_cells`` record the
-survivor funnel, wall seconds and DP cells of the last
-:meth:`SearchPipeline.search`; over shards, counts and cells are summed,
-seconds are the slowest shard's and ``stage_devices`` counts the
-shards that ran.
+survivor funnel, wall seconds (the spans ``filter``, ``viterbi``,
+``forward`` and ``domains`` of :data:`~gecco_tpu_torch.profiling.TIMER`)
+and DP cells of the last :meth:`SearchPipeline.search`; over shards,
+counts and cells are summed, seconds are the slowest shard's and
+``stage_devices`` counts the shards that ran.
 """
 
 import math
 import threading
-import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -60,12 +60,13 @@ import numpy
 import torch
 
 from .._device import BACKENDS, on_device, resolve_backend, resolve_device
+from ..profiling import TIMER
 from . import engine
 from .bank import ProfileBank, TorchBank, bias_logratio
 from .engine import DomainHit, exp_surv
 from .kernels import (
     SeqPack, dense_scores, dense_scores_plain, flatten_pairs, msv_filter, msv_filter_plain,
-    pack_mask, ssv_filter, ssv_filter_plain, viterbi_pairs, viterbi_pairs_plain,
+    pack_mask, ssv_filter, ssv_filter_plain, to_host, viterbi_pairs, viterbi_pairs_plain,
 )
 from .profile import SearchProfile, null1_score
 from .stream import StreamDomains, forward_pairs, forward_pairs_plain
@@ -178,7 +179,10 @@ class SearchPipeline:
         #: search rescored (``stage_counts["F2"]`` pairs; None with
         #: ``max_filter`` or when none survived F2)
         self.rescored_pairs: Optional[Tuple["numpy.ndarray", "numpy.ndarray"]] = None
-        self._bank = ProfileBank.build(self.profiles) if self.profiles else None
+        self._bank = None
+        if self.profiles:
+            with TIMER.span("build-bank"):
+                self._bank = ProfileBank.build(self.profiles)
         self._torch_bank: Optional[TorchBank] = None
         self._logratio = None
         self._subs: Optional[List["SearchPipeline"]] = None
@@ -187,7 +191,8 @@ class SearchPipeline:
     def bank(self) -> TorchBank:
         """The bank's device tensors, uploaded on first use."""
         if self._torch_bank is None:
-            self._torch_bank = TorchBank.from_numpy(self._bank, self.device)
+            with TIMER.span("upload-bank"):
+                self._torch_bank = TorchBank.from_numpy(self._bank, self.device)
         return self._torch_bank
 
     def _cutoff(self, gm: SearchProfile) -> Optional[Tuple[float, float]]:
@@ -269,6 +274,7 @@ class SearchPipeline:
         domZ = self.domZ if self.domZ is not None else Z
         results: List[Optional[List[SequenceHit]]] = [None] * n
         errors: List[BaseException] = []
+        parent = TIMER.current()
 
         def work(d: int) -> None:
             try:
@@ -278,7 +284,7 @@ class SearchPipeline:
                     return
                 sub = subs[d]
                 sub.Z, sub.domZ = Z, domZ
-                with on_device(devices[d]):
+                with on_device(devices[d]), TIMER.attach(parent, str(devices[d])):
                     hits = sub.search([sequences[i] for i in idx])
                 for hit in hits:
                     hit.sequence_index = idx[hit.sequence_index]
@@ -350,7 +356,8 @@ class SearchPipeline:
         else:
             backend = resolve_backend(self.backend, self.device)
             bank = self.bank
-            pack = SeqPack(sequences, self.device)
+            with TIMER.span("pack-sequences"):
+                pack = SeqPack(sequences, self.device)
             if self.max_filter:
                 vals, s_arr, p_arr, extras = self._score_all(
                     pack, bank, backend, lengths, model_lengths)
@@ -359,70 +366,70 @@ class SearchPipeline:
                 if scored is None:
                     return []
                 vals, s_arr, p_arr, extras = scored
-        t_stage = time.perf_counter()
 
         # ---- stage 3: F3 / E / bit-cutoff gates, domain definition, reporting
-        if s_arr is None:
-            # the dense [S, P] scores of max_filter: gate every pair at once
-            bits = (vals - nullsc[:, None]) / LOG2
-            tau = host.fwd_tau.astype(numpy.float64)[None, :]
-            lam = host.fwd_lambda.astype(numpy.float64)[None, :]
-            pv, keep = self._f3_e_gate(bits, bits, tau, lam, Z)
-            s_arr, p_arr = numpy.nonzero(keep)
-            bits_all, pv_all = bits[keep], pv[keep]
-            extras = numpy.zeros(len(s_arr))
-            keep = numpy.ones(len(s_arr), dtype=bool)
-        else:
-            bits_all = (vals - nullsc[s_arr]) / LOG2
-            tau = host.fwd_tau[p_arr].astype(numpy.float64)
-            lam = host.fwd_lambda[p_arr].astype(numpy.float64)
-            pv_all, keep = self._f3_e_gate(bits_all, bits_all - extras, tau, lam, Z)
-        if self.bit_cutoffs is not None:
-            kept = numpy.flatnonzero(keep)
-            profs, inverse = numpy.unique(p_arr[kept], return_inverse=True)
-            ga = numpy.asarray([self._cutoff(self.profiles[p])[0] for p in profs])
-            keep[kept] &= bits_all[kept] >= ga[inverse]
-        candidates: List[Tuple[int, int, float, float]] = [
-            (int(i), int(p), float(b), float(v))
-            for i, p, b, v in zip(s_arr[keep], p_arr[keep], bits_all[keep], pv_all[keep])
-        ]
-        self.stage_counts["F3"] = len(candidates)
-        if not candidates:
-            return []
-        self.candidate_pairs = [(i, p) for i, p, _, _ in candidates]
+        with TIMER.span("domains") as span:
+            if s_arr is None:
+                # the dense [S, P] scores of max_filter: gate every pair at once
+                bits = (vals - nullsc[:, None]) / LOG2
+                tau = host.fwd_tau.astype(numpy.float64)[None, :]
+                lam = host.fwd_lambda.astype(numpy.float64)[None, :]
+                pv, keep = self._f3_e_gate(bits, bits, tau, lam, Z)
+                s_arr, p_arr = numpy.nonzero(keep)
+                bits_all, pv_all = bits[keep], pv[keep]
+                extras = numpy.zeros(len(s_arr))
+                keep = numpy.ones(len(s_arr), dtype=bool)
+            else:
+                bits_all = (vals - nullsc[s_arr]) / LOG2
+                tau = host.fwd_tau[p_arr].astype(numpy.float64)
+                lam = host.fwd_lambda[p_arr].astype(numpy.float64)
+                pv_all, keep = self._f3_e_gate(bits_all, bits_all - extras, tau, lam, Z)
+            if self.bit_cutoffs is not None:
+                kept = numpy.flatnonzero(keep)
+                profs, inverse = numpy.unique(p_arr[kept], return_inverse=True)
+                ga = numpy.asarray([self._cutoff(self.profiles[p])[0] for p in profs])
+                keep[kept] &= bits_all[kept] >= ga[inverse]
+            candidates: List[Tuple[int, int, float, float]] = [
+                (int(i), int(p), float(b), float(v))
+                for i, p, b, v in zip(s_arr[keep], p_arr[keep], bits_all[keep], pv_all[keep])
+            ]
+            self.stage_counts["F3"] = len(candidates)
+            if not candidates:
+                return []
+            self.candidate_pairs = [(i, p) for i, p, _, _ in candidates]
 
-        if self.use_accelerator:
-            # domain definition on the device (kernels D-G), as the JAX
-            # package's Pallas path; reported scores are the f32 F3 values
-            domains = StreamDomains(bank, self.profiles, backend=backend)
-            domains_of = domains.define(sequences, self.candidate_pairs, pack=pack)
-            self.host_pairs = domains.host_pairs
-        else:
-            candidates, domains_of = self._rescore_host(
-                sequences, candidates, extras[keep], nullsc, Z)
-            self.host_pairs = len(domains_of)
+            if self.use_accelerator:
+                # domain definition on the device (kernels D-G), as the JAX
+                # package's Pallas path; reported scores are the f32 F3 values
+                domains = StreamDomains(bank, self.profiles, backend=backend)
+                domains_of = domains.define(sequences, self.candidate_pairs, pack=pack)
+                self.host_pairs = domains.host_pairs
+            else:
+                candidates, domains_of = self._rescore_host(
+                    sequences, candidates, extras[keep], nullsc, Z)
+                self.host_pairs = len(domains_of)
 
-        hits: List[SequenceHit] = []
-        for i, p, bits, pv in candidates:
-            gm = self.profiles[p]
-            cutoff = self._cutoff(gm)
-            reported: List[DomainHit] = []
-            for dom in domains_of.get((i, p), []):
-                dom.i_evalue = dom.pvalue * domZ
-                if cutoff is None:
-                    if dom.i_evalue <= self.domE:
+            hits: List[SequenceHit] = []
+            for i, p, bits, pv in candidates:
+                gm = self.profiles[p]
+                cutoff = self._cutoff(gm)
+                reported: List[DomainHit] = []
+                for dom in domains_of.get((i, p), []):
+                    dom.i_evalue = dom.pvalue * domZ
+                    if cutoff is None:
+                        if dom.i_evalue <= self.domE:
+                            reported.append(dom)
+                    elif dom.bitscore >= cutoff[1]:
                         reported.append(dom)
-                elif dom.bitscore >= cutoff[1]:
-                    reported.append(dom)
-            if not reported:
-                continue
-            hits.append(SequenceHit(
-                sequence_index=i, profile=gm,
-                score=float(bits), pvalue=float(pv), evalue=float(pv) * Z,
-                domains=reported,
-            ))
-        self.stage_counts["reported"] = len(hits)
-        self.stage_seconds["domains"] = time.perf_counter() - t_stage
+                if not reported:
+                    continue
+                hits.append(SequenceHit(
+                    sequence_index=i, profile=gm,
+                    score=float(bits), pvalue=float(pv), evalue=float(pv) * Z,
+                    domains=reported,
+                ))
+            self.stage_counts["reported"] = len(hits)
+        self.stage_seconds["domains"] = span.seconds
         self.stage_cells["domains"] = float(sum(
             lengths[i] * model_lengths[p] for i, p, _, _ in candidates
         ))
@@ -440,23 +447,23 @@ class SearchPipeline:
         self.stage_counts = {"pairs": pairs, "F1": pairs, "F2": pairs}
         self.stage_seconds.update(filter=0.0, viterbi=0.0)
         self.stage_cells.update(filter=0.0, viterbi=cells, forward=cells)
-        t_stage = time.perf_counter()
-        s_arr = numpy.repeat(numpy.arange(S, dtype=numpy.int64), P)
-        p_arr = numpy.tile(numpy.arange(P, dtype=numpy.int64), S)
-        self.rescored_pairs = (s_arr, p_arr)
-        vals = numpy.array([engine.forward(self.profiles[p], sequences[i]).score
-                            for i, p in zip(s_arr, p_arr)], dtype=numpy.float64)
-        extras = numpy.zeros(pairs)
-        if self.bias_filter and not self.max_filter:
-            # the null of the F3 gate, from residue counts (there is no pack)
-            if self._logratio is None:
-                self._logratio = bias_logratio(self._bank).astype(numpy.float64)
-            counts = numpy.zeros((S, 20), dtype=numpy.float64)
-            for i, x in enumerate(sequences):
-                counts[i] = numpy.bincount(numpy.minimum(x, 20), minlength=21)[:20]
-            delta = (counts @ self._logratio)[s_arr, p_arr]
-            extras = numpy.maximum(numpy.logaddexp(0.0, delta) - LOG2, 0.0) / LOG2
-        self.stage_seconds["forward"] = time.perf_counter() - t_stage
+        with TIMER.span("forward") as span:
+            s_arr = numpy.repeat(numpy.arange(S, dtype=numpy.int64), P)
+            p_arr = numpy.tile(numpy.arange(P, dtype=numpy.int64), S)
+            self.rescored_pairs = (s_arr, p_arr)
+            vals = numpy.array([engine.forward(self.profiles[p], sequences[i]).score
+                                for i, p in zip(s_arr, p_arr)], dtype=numpy.float64)
+            extras = numpy.zeros(pairs)
+            if self.bias_filter and not self.max_filter:
+                # the null of the F3 gate, from residue counts (there is no pack)
+                if self._logratio is None:
+                    self._logratio = bias_logratio(self._bank).astype(numpy.float64)
+                counts = numpy.zeros((S, 20), dtype=numpy.float64)
+                for i, x in enumerate(sequences):
+                    counts[i] = numpy.bincount(numpy.minimum(x, 20), minlength=21)[:20]
+                delta = (counts @ self._logratio)[s_arr, p_arr]
+                extras = numpy.maximum(numpy.logaddexp(0.0, delta) - LOG2, 0.0) / LOG2
+        self.stage_seconds["forward"] = span.seconds
         return vals, s_arr, p_arr, extras
 
     def _rescore_host(self, sequences, candidates, extras, nullsc, Z):
@@ -495,11 +502,10 @@ class SearchPipeline:
         self.stage_counts = {"pairs": pairs, "F1": pairs, "F2": pairs}
         self.stage_seconds.update(filter=0.0, viterbi=0.0)
         self.stage_cells.update(filter=0.0, viterbi=0.0)
-        t_stage = time.perf_counter()
         self.stage_cells["forward"] = float(lengths.sum() * model_lengths.sum())
-        dense = _SCORERS[backend]["dense"]
-        vals = dense(pack, bank).cpu().numpy().astype(numpy.float64)
-        self.stage_seconds["forward"] = time.perf_counter() - t_stage
+        with TIMER.span("forward") as span:
+            vals = to_host(_SCORERS[backend]["dense"](pack, bank)).astype(numpy.float64)
+        self.stage_seconds["forward"] = span.seconds
         return vals, None, None, None
 
     def _score_filtered(self, pack, bank, backend, lengths, nullsc, model_lengths):
@@ -514,12 +520,13 @@ class SearchPipeline:
         # hmmsearch; reported scores and E-values stay null1-based
         counts = extra_mx = None
         if self.bias_filter:
-            if self._logratio is None:
-                self._logratio = bias_logratio(host).astype(numpy.float64)
-            counts = pack.counts_host.astype(numpy.float64)
-            if pack.S * host.P <= 64_000_000:
-                extra_mx = numpy.maximum(numpy.logaddexp(
-                    0.0, counts @ self._logratio) - LOG2, 0.0)
+            with TIMER.span("bias-null"):
+                if self._logratio is None:
+                    self._logratio = bias_logratio(host).astype(numpy.float64)
+                counts = pack.counts_host.astype(numpy.float64)
+                if pack.S * host.P <= 64_000_000:
+                    extra_mx = numpy.maximum(numpy.logaddexp(
+                        0.0, counts @ self._logratio) - LOG2, 0.0)
 
         def filter_extra(s_arr, p_arr):
             """``filtersc - nullsc`` (nats) per pair, clipped at >= 0; 0
@@ -538,15 +545,15 @@ class SearchPipeline:
             ))
 
         # ---- stage 1: SSV or MSV filter of all pairs
-        t_stage = time.perf_counter()
-        scores = scorers[self.filter_stage](pack, bank)
-        keep = pack_mask(scores, pack, bank, self.F1, bias=self.bias_filter)
-        surviving: Dict[int, List[int]] = {}
-        for i in range(pack.S):
-            kept = numpy.nonzero(keep[i])[0].tolist()
-            if kept:
-                surviving[i] = kept
-        self.stage_seconds["filter"] = time.perf_counter() - t_stage
+        with TIMER.span("filter") as span:
+            scores = scorers[self.filter_stage](pack, bank)
+            keep = pack_mask(scores, pack, bank, self.F1, bias=self.bias_filter)
+            surviving: Dict[int, List[int]] = {}
+            for i in range(pack.S):
+                kept = numpy.nonzero(keep[i])[0].tolist()
+                if kept:
+                    surviving[i] = kept
+        self.stage_seconds["filter"] = span.seconds
         self.stage_cells["filter"] = float(lengths.sum()) * model_lengths.sum()
 
         # ---- stage 1.5: Viterbi F2 gate on the filter survivors
@@ -554,28 +561,28 @@ class SearchPipeline:
             "pairs": pack.S * len(self.profiles),
             "F1": sum(len(v) for v in surviving.values()),
         }
-        t_stage = time.perf_counter()
-        self.stage_cells["viterbi"] = pair_cells(surviving)
-        if surviving:
-            s_arr, p_arr = flatten_pairs(surviving)
-            v_arr = scorers["viterbi"](pack, bank, s_arr, p_arr).cpu().numpy()
-            bits = (v_arr.astype(numpy.float64) - nullsc[s_arr]) / LOG2
-            bits -= filter_extra(s_arr, p_arr) / LOG2
-            pv = _gumbel_surv_vec(host.vit_lambda[p_arr] * (bits - host.vit_mu[p_arr]))
-            keep2 = pv <= self.F2
-            surviving = {}
-            for s, p in zip(s_arr[keep2], p_arr[keep2]):
-                surviving.setdefault(int(s), []).append(int(p))
-        self.stage_seconds["viterbi"] = time.perf_counter() - t_stage
+        with TIMER.span("viterbi") as span:
+            self.stage_cells["viterbi"] = pair_cells(surviving)
+            if surviving:
+                s_arr, p_arr = flatten_pairs(surviving)
+                v_arr = to_host(scorers["viterbi"](pack, bank, s_arr, p_arr))
+                bits = (v_arr.astype(numpy.float64) - nullsc[s_arr]) / LOG2
+                bits -= filter_extra(s_arr, p_arr) / LOG2
+                pv = _gumbel_surv_vec(host.vit_lambda[p_arr] * (bits - host.vit_mu[p_arr]))
+                keep2 = pv <= self.F2
+                surviving = {}
+                for s, p in zip(s_arr[keep2], p_arr[keep2]):
+                    surviving.setdefault(int(s), []).append(int(p))
+        self.stage_seconds["viterbi"] = span.seconds
 
         # ---- stage 2: Forward rescore of the F2 survivors
         self.stage_counts["F2"] = sum(len(v) for v in surviving.values())
-        t_stage = time.perf_counter()
         self.stage_cells["forward"] = pair_cells(surviving)
         if not surviving:
             return None
-        s_arr, p_arr = flatten_pairs(surviving)
-        self.rescored_pairs = (s_arr, p_arr)
-        vals = scorers["forward"](pack, bank, s_arr, p_arr).cpu().numpy().astype(numpy.float64)
-        self.stage_seconds["forward"] = time.perf_counter() - t_stage
+        with TIMER.span("forward") as span:
+            s_arr, p_arr = flatten_pairs(surviving)
+            self.rescored_pairs = (s_arr, p_arr)
+            vals = to_host(scorers["forward"](pack, bank, s_arr, p_arr)).astype(numpy.float64)
+        self.stage_seconds["forward"] = span.seconds
         return vals, s_arr, p_arr, filter_extra(s_arr, p_arr) / LOG2

@@ -42,7 +42,7 @@ from .bank import NEG, TorchBank
 from .engine import DomainHit, exp_surv
 from .kernels import (
     DENSE_WARP_WIDTH, SeqPack, _check, _forward_step, _kernel_device, _shift_right, check_ranges,
-    launch_rows, pair_blocks, pair_groups, pair_launches, run_launches, window_rows,
+    launch_rows, pair_blocks, pair_groups, pair_launches, run_launches, to_host, window_rows,
 )
 from .profile import length_model, null1_score
 
@@ -889,7 +889,7 @@ class DeviceDomains:
                 fetch.append(torch.cat([ienv, jenv, over.to(torch.int32)[:, None],
                                         score.view(torch.int32)[:, None]], 1))
                 groups.append(part)
-        fetched = torch.cat(fetch).cpu().numpy()
+        fetched = to_host(torch.cat(fetch))
         slots = _N_REGIONS * _N_ENVS
 
         # envelope rows; overflowing pairs go to the host engine
@@ -923,7 +923,7 @@ class DeviceDomains:
                 results.append(torch.cat([res, coords.view(torch.float32)], 1))
                 launched.extend(part)
         if launched:
-            aligned = torch.cat(results).cpu().numpy()
+            aligned = to_host(torch.cat(results))
             assemble_domains(out, sequences, self.profiles, launched, aligned)
         return out
 
