@@ -20,9 +20,9 @@ from .._meta import UniversalContainer
 from ..interpro import InterPro
 from ..model import Domain, Gene
 from ..profiling import TIMER
-from .io import encode_sequence, parse_hmmer3
+from .io import encode_sequence, read_hmmer3
 from .pipeline import SearchPipeline
-from .profile import SearchProfile, configure_local
+from .profile import SearchProfile, configure_many
 
 __all__ = ["HMM", "DomainAnnotator", "ProfileHMMAnnotator", "embedded_hmms"]
 
@@ -95,13 +95,16 @@ class ProfileHMMAnnotator(DomainAnnotator):
     def _load_profiles(self) -> List[SearchProfile]:
         if self._profiles is None:
             with TIMER.span("read-profiles"):
+                reader, parsed = read_hmmer3(self.hmm.path)
+                every = list(parsed)
+                TIMER.count(f"read_profiles.{reader}", len(every))
                 raws = [
-                    raw for raw in parse_hmmer3(self.hmm.path)
+                    raw for raw in every
                     if raw.accession is None
                     or self.hmm.relabel(raw.accession) in self.whitelist
                 ]
             with TIMER.span("configure-profiles"):
-                self._profiles = [configure_local(raw) for raw in raws]
+                self._profiles = configure_many(raws)
         return self._profiles
 
     def run(

@@ -83,48 +83,43 @@ class ProfileBank:
     @classmethod
     def build(cls, profiles: Sequence[SearchProfile], lane: int = 128) -> "ProfileBank":
         P = len(profiles)
-        Mp = _round_up(max(gm.M for gm in profiles), lane)
+        lengths = numpy.array([gm.M for gm in profiles], dtype=numpy.int32)
+        Mp = _round_up(int(lengths.max()), lane)
+        # node k of profile p sits at lane k-1 of row p: the profiles'
+        # nodes end to end, each written to its place by one scatter
+        row = numpy.repeat(numpy.arange(P), lengths)
+        node = numpy.arange(len(row)) - numpy.repeat(numpy.cumsum(lengths) - lengths, lengths)
+
+        def odds(rows: "numpy.ndarray") -> "numpy.ndarray":
+            """``exp(where(isfinite, rows, -745))`` as float32, in place."""
+            numpy.copyto(rows, -745.0, where=~numpy.isfinite(rows))
+            return numpy.exp(rows, out=rows).astype(numpy.float32)
+
         e_odds = numpy.zeros((_K, P, Mp), dtype=numpy.float32)
-        arrays = {
-            name: numpy.zeros((P, Mp), dtype=numpy.float32)
-            for name in ("tmm", "tim", "tdm", "tmi", "tii", "tmd", "tdd", "bm")
-        }
-        msv_tbm = numpy.zeros(P, dtype=numpy.float32)
-        lengths = numpy.zeros(P, dtype=numpy.int32)
-        uncalibrated: List[str] = []
-        stats = {key: numpy.zeros(P, dtype=numpy.float32) for key in
-                 ("fwd_tau", "fwd_lambda", "msv_mu", "msv_lambda",
-                  "vit_mu", "vit_lambda")}
-        names, accessions = [], []
-        for p, gm in enumerate(profiles):
-            M = gm.M
-            # node k of the profile sits at lane k-1
-            e_odds[:, p, :M] = numpy.exp(
-                numpy.where(numpy.isfinite(gm.msc[1:, :]), gm.msc[1:, :], -745.0)
-            ).T.astype(numpy.float32)
-            for name, source in (
-                ("tmm", gm.tmm), ("tim", gm.tim), ("tdm", gm.tdm),
-                ("tmi", gm.tmi), ("tii", gm.tii),
-                ("tmd", gm.tmd), ("tdd", gm.tdd), ("bm", gm.bm),
-            ):
-                values = numpy.exp(numpy.where(numpy.isfinite(source[1:]), source[1:], -745.0))
-                arrays[name][p, :M] = values.astype(numpy.float32)
-            msv_tbm[p] = 2.0 / (M * (M + 1.0))
-            lengths[p] = M
-            names.append(gm.name)
-            accessions.append(gm.accession or gm.name)
-            tau, lam = gm.hmm.stats.get("FORWARD", (0.0, math.log(2.0)))
-            stats["fwd_tau"][p], stats["fwd_lambda"][p] = tau, lam
-            # profiles without STATS MSV/VITERBI calibration must not be
-            # dropped by the F1/F2 Gumbel gates (hmmsearch only applies
-            # filter thresholds to calibrated models): mu = -inf makes
-            # the survival p-value 0, i.e. the gate always passes
-            mu, mlam = gm.hmm.stats.get("MSV", (-1e30, math.log(2.0)))
-            stats["msv_mu"][p], stats["msv_lambda"][p] = mu, mlam
-            vmu, vlam = gm.hmm.stats.get("VITERBI", (-1e30, math.log(2.0)))
-            stats["vit_mu"][p], stats["vit_lambda"][p] = vmu, vlam
-            if "MSV" not in gm.hmm.stats or "VITERBI" not in gm.hmm.stats:
-                uncalibrated.append(gm.name)
+        e_odds[:, row, node] = odds(numpy.concatenate([gm.msc[1:] for gm in profiles])).T
+        arrays = {}
+        for name in ("tmm", "tim", "tdm", "tmi", "tii", "tmd", "tdd", "bm"):
+            arrays[name] = numpy.zeros((P, Mp), dtype=numpy.float32)
+            arrays[name][row, node] = odds(
+                numpy.concatenate([getattr(gm, name)[1:] for gm in profiles]))
+        msv_tbm = (2.0 / (lengths * (lengths + 1.0))).astype(numpy.float32)
+        names = [gm.name for gm in profiles]
+        accessions = [gm.accession or gm.name for gm in profiles]
+        # profiles without STATS MSV/VITERBI calibration must not be
+        # dropped by the F1/F2 Gumbel gates (hmmsearch only applies
+        # filter thresholds to calibrated models): mu = -inf makes the
+        # survival p-value 0, i.e. the gate always passes
+        stats = {}
+        for key, unset, (loc, lam) in (
+            ("FORWARD", (0.0, math.log(2.0)), ("fwd_tau", "fwd_lambda")),
+            ("MSV", (-1e30, math.log(2.0)), ("msv_mu", "msv_lambda")),
+            ("VITERBI", (-1e30, math.log(2.0)), ("vit_mu", "vit_lambda")),
+        ):
+            pairs = numpy.array([gm.hmm.stats.get(key, unset) for gm in profiles],
+                                dtype=numpy.float64).reshape(P, 2).astype(numpy.float32)
+            stats[loc], stats[lam] = pairs[:, 0].copy(), pairs[:, 1].copy()
+        uncalibrated = [gm.name for gm in profiles
+                        if "MSV" not in gm.hmm.stats or "VITERBI" not in gm.hmm.stats]
         if uncalibrated:
             import warnings
 

@@ -81,22 +81,30 @@ class _Reader:
         self.pos = 0
         self.end = "<" if (numpy.little_endian ^ swap) else ">"
 
-    def take(self, n: int) -> bytes:
+    def skip(self, n: int) -> int:
+        """Step over ``n`` bytes; returns their offset."""
         if self.pos + n > len(self.data):
             raise ValueError("truncated .h3m file")
-        out = self.data[self.pos : self.pos + n]
         self.pos += n
-        return out
+        return self.pos - n
+
+    def take(self, n: int) -> bytes:
+        at = self.skip(n)
+        return self.data[at : at + n]
 
     def u32(self) -> int:
-        return struct.unpack(self.end + "I", self.take(4))[0]
+        return struct.unpack_from(self.end + "I", self.data, self.skip(4))[0]
 
     def i32(self) -> int:
-        return struct.unpack(self.end + "i", self.take(4))[0]
+        return struct.unpack_from(self.end + "i", self.data, self.skip(4))[0]
 
     def f32(self, n: int = 1) -> "numpy.ndarray":
+        return self.f32_block(n).astype(numpy.float64)
+
+    def f32_block(self, n: int) -> "numpy.ndarray":
+        """``n`` float32 values as a read-only view of the file's bytes."""
         dt = numpy.dtype(numpy.float32).newbyteorder(self.end)
-        return numpy.frombuffer(self.take(4 * n), dtype=dt).astype(numpy.float64)
+        return numpy.frombuffer(self.data, dtype=dt, count=n, offset=self.skip(4 * n))
 
     def i32v(self, n: int) -> "numpy.ndarray":
         dt = numpy.dtype(numpy.int32).newbyteorder(self.end)
@@ -188,15 +196,19 @@ def _read_record(r: _Reader, magic: int) -> ProfileHMM:
     cutoff = r.f32(6)
     compo = r.f32(_K) if flags & _F_COMPO else None
 
-    trans = numpy.zeros((M + 1, 7), dtype=numpy.float64)
-    for k in range(M + 1):
-        trans[k] = r.f32(7)
-    match = numpy.zeros((M + 1, _K), dtype=numpy.float64)
-    for k in range(1, M + 1):
-        match[k] = r.f32(_K)
-    insert = numpy.zeros((M + 1, _K), dtype=numpy.float64)
-    for k in range(M + 1):
-        insert[k] = r.f32(_K)
+    # the core model is one contiguous float32 block: t[0..M][7],
+    # mat[1..M][20], ins[0..M][20]; it is widened once into a float64
+    # block that leaves room for match row 0 (zeros), so that trans,
+    # match and insert are views of it
+    nt, nk = (M + 1) * 7, (M + 1) * _K
+    core = r.f32_block(nt + M * _K + nk)
+    block = numpy.empty(nt + 2 * nk, dtype=numpy.float64)
+    block[:nt] = core[:nt]
+    block[nt : nt + _K] = 0.0
+    block[nt + _K :] = core[nt:]
+    trans = block[:nt].reshape(M + 1, 7)
+    match = block[nt : nt + nk].reshape(M + 1, _K)
+    insert = block[nt + nk :].reshape(M + 1, _K)
 
     stats = {}
     if flags & _F_STATS and evparam[0] > _EVPARAM_UNSET:

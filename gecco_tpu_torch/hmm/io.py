@@ -18,7 +18,7 @@ import numpy
 
 from .._meta import zopen
 
-__all__ = ["ProfileHMM", "parse_hmmer3", "AMINO_ALPHABET", "BACKGROUND_F"]
+__all__ = ["ProfileHMM", "parse_hmmer3", "read_hmmer3", "AMINO_ALPHABET", "BACKGROUND_F"]
 
 #: Canonical amino acid order of HMMER3 emission columns.
 AMINO_ALPHABET = "ACDEFGHIKLMNPQRSTVWY"
@@ -85,13 +85,26 @@ def parse_hmmer3(path: Union[str, BinaryIO]) -> Iterator[ProfileHMM]:
     of a pressed database contain no parseable core model and are
     rejected with a pointer at the ``.h3m``.
     """
+    yield from read_hmmer3(path)[1]
+
+
+def read_hmmer3(path: Union[str, BinaryIO]) -> Tuple[str, Iterator[ProfileHMM]]:
+    """``(reader, profiles)`` of a file :func:`parse_hmmer3` takes.
+
+    ``reader`` names the reader the file's format routes to, ``"h3m"``
+    or ``"text"``; the file is read whole at once, its profiles are
+    parsed as ``profiles`` is iterated.
+    """
     with zopen(path) as handle:
         raw = handle.read()
     from .h3m import is_h3m, read_h3m
 
     if is_h3m(raw):
-        yield from read_h3m(raw)
-        return
+        return "h3m", read_h3m(raw)
+    return "text", _parse_text(raw)
+
+
+def _parse_text(raw: bytes) -> Iterator[ProfileHMM]:
     try:
         text = raw.decode()
     except UnicodeDecodeError:

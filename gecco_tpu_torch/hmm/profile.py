@@ -18,7 +18,8 @@ import numpy
 from .io import BACKGROUND_F, ProfileHMM
 
 __all__ = [
-    "SearchProfile", "configure_local", "length_model", "null1_score", "profiles_from_arrays",
+    "SearchProfile", "configure_local", "configure_many", "length_model", "null1_score",
+    "profiles_from_arrays",
 ]
 
 LOG2 = math.log(2.0)
@@ -64,57 +65,100 @@ class SearchProfile:
         return self.hmm.accession
 
 
-def _safe_log(p: "numpy.ndarray") -> "numpy.ndarray":
+def _safe_log(p: "numpy.ndarray", out: Optional["numpy.ndarray"] = None) -> "numpy.ndarray":
     with numpy.errstate(divide="ignore"):
-        return numpy.log(p)
+        return numpy.log(p, out=out)
 
 
 def match_occupancy(hmm: ProfileHMM) -> "numpy.ndarray":
     """Expected match-state occupancy per node (``p7_hmm_CalculateOccupancy``)."""
-    M = hmm.length
-    t = hmm.trans
-    occ = numpy.zeros(M + 1)
-    occ[1] = t[0, 0] + t[0, 1]  # 1 - B->D1  (MM + MI out of node 0)
-    for k in range(2, M + 1):
-        occ[k] = occ[k - 1] * (t[k - 1, 0] + t[k - 1, 1]) + (1.0 - occ[k - 1]) * t[k - 1, 5]
-    return occ
+    rows = hmm.length + 1
+    return _occupancy(hmm.trans, numpy.arange(rows), numpy.zeros(rows, dtype=numpy.int64))
+
+
+def _occupancy(
+    trans: "numpy.ndarray", node: "numpy.ndarray", col: "numpy.ndarray"
+) -> "numpy.ndarray":
+    """:func:`match_occupancy` of profiles laid end to end, one step a node.
+
+    ``trans`` holds the profiles' ``[M+1, 7]`` rows one after another;
+    row ``r`` is node ``node[r]`` of profile ``col[r]``.  The recurrence
+    ``occ[k] = occ[k-1] (MM + MI)[k-1] + (1 - occ[k-1]) DM[k-1]`` runs
+    once per node index over all profiles at once, on ``[max M + 1, P]``
+    columns padded with zeros past each profile's end: the operations
+    of a lone profile, in the same order.  Returns ``occ`` in the rows
+    of ``trans``.
+    """
+    shape = (int(node.max()) + 1, int(col.max()) + 1)
+    stay, enter, occ = numpy.zeros(shape), numpy.zeros(shape), numpy.zeros(shape)
+    stay[node, col] = trans[:, 0] + trans[:, 1]
+    enter[node, col] = trans[:, 5]
+    if shape[0] > 1:
+        occ[1] = stay[0]  # 1 - B->D1  (MM + MI out of node 0)
+    kept, left = numpy.empty(shape[1]), numpy.empty(shape[1])
+    for k in range(2, shape[0]):
+        numpy.multiply(occ[k - 1], stay[k - 1], out=kept)
+        numpy.subtract(1.0, occ[k - 1], out=left)
+        numpy.multiply(left, enter[k - 1], out=left)
+        numpy.add(kept, left, out=occ[k])
+    return occ[node, col]
 
 
 def configure_local(hmm: ProfileHMM, multihit: bool = True) -> SearchProfile:
     """Configure a core HMM for local (uni/multi-hit) alignment."""
-    M = hmm.length
+    return configure_many([hmm], multihit=multihit)[0]
+
+
+def configure_many(hmms: Iterable[ProfileHMM], multihit: bool = True) -> List[SearchProfile]:
+    """:func:`configure_local` of every profile, on whole-library arrays.
+
+    The profiles' ``M + 1`` rows are laid end to end and every
+    elementwise step runs once over all of them; each profile's arrays
+    are views of those flat arrays.  Only ``Z``, a sum, is taken per
+    profile, over the profile's own slice, so that it adds in the order
+    of a lone profile.
+    """
+    hmms = list(hmms)
+    if not hmms:
+        return []
+    rows = numpy.array([h.length + 1 for h in hmms], dtype=numpy.int64)
+    starts = numpy.concatenate([[0], numpy.cumsum(rows)])
+    first = starts[:-1]                     # each profile's row 0
+    col = numpy.repeat(numpy.arange(len(hmms)), rows)
+    node = numpy.arange(starts[-1]) - first[col]
+    trans = numpy.concatenate([h.trans for h in hmms])
+
     # match log-odds; insert emissions score 0 in local mode
-    msc = numpy.full((M + 1, 21), _NEG_INF)
-    msc[1:, :20] = _safe_log(hmm.match[1:] / BACKGROUND_F[None, :])
-    msc[1:, 20] = 0.0  # degenerate residues: odds ratio 1
-    msc[0, :] = _NEG_INF
+    odds = numpy.concatenate([h.match for h in hmms])
+    numpy.divide(odds, BACKGROUND_F[None, :], out=odds)
+    msc = numpy.empty((len(node), 21))
+    msc[:, :20] = _safe_log(odds, out=odds)
+    msc[:, 20] = 0.0  # degenerate residues: odds ratio 1
+    msc[first, :] = _NEG_INF
 
-    t = hmm.trans
-    logt = _safe_log(t)
-
-    def column(j: int) -> "numpy.ndarray":
-        out = numpy.full(M + 1, _NEG_INF)
-        out[: M + 1] = logt[:, j]
-        return out
-
-    tmm, tmi, tmd = column(0), column(1), column(2)
-    tim, tii = column(3), column(4)
-    tdm, tdd = column(5), column(6)
+    # columns MM MI MD IM II DM DD, each one contiguous row
+    logt = numpy.ascontiguousarray(_safe_log(trans).T)
 
     # local entry: B->Mk = occ[k] / sum_i occ[i]*(M-i+1)
-    occ = match_occupancy(hmm)
-    Z = float(numpy.sum(occ[1:] * (M - numpy.arange(1, M + 1) + 1.0)))
-    bm = numpy.full(M + 1, _NEG_INF)
+    occ = _occupancy(trans, node, col)
+    mass = occ * ((rows[col] - 1 - node) + 1.0)     # occ[k] * (M - k + 1)
+    spans = list(zip(starts.tolist(), starts[1:].tolist()))
+    Z = numpy.array([numpy.sum(mass[a + 1 : b]) for a, b in spans])
     with numpy.errstate(divide="ignore"):
-        bm[1:] = numpy.log(occ[1:] / Z)
+        bm = numpy.log(occ / Z[col])
+    bm[first] = _NEG_INF
 
     loop_e = math.log(0.5) if multihit else _NEG_INF
     move_e = math.log(0.5) if multihit else 0.0
-    return SearchProfile(
-        hmm=hmm, msc=msc,
-        tmm=tmm, tim=tim, tdm=tdm, tmi=tmi, tii=tii, tmd=tmd, tdd=tdd,
-        bm=bm, loop_e=loop_e, move_e=move_e,
-    )
+    profiles = []
+    for hmm, (a, b) in zip(hmms, spans):
+        tmm, tmi, tmd, tim, tii, tdm, tdd = logt[:, a:b]
+        profiles.append(SearchProfile(
+            hmm=hmm, msc=msc[a:b],
+            tmm=tmm, tim=tim, tdm=tdm, tmi=tmi, tii=tii, tmd=tmd, tdd=tdd,
+            bm=bm[a:b], loop_e=loop_e, move_e=move_e,
+        ))
+    return profiles
 
 
 def profiles_from_arrays(records: Iterable[Mapping[str, Any]]) -> List[SearchProfile]:
@@ -127,9 +171,9 @@ def profiles_from_arrays(records: Iterable[Mapping[str, Any]]) -> List[SearchPro
     are copied, so the profiles share nothing with the caller's objects
     (calibrating them in place leaves the source alone).
     """
-    profiles = []
+    hmms = []
     for r in records:
-        hmm = ProfileHMM(
+        hmms.append(ProfileHMM(
             name=str(r["name"]),
             accession=None if r["accession"] is None else str(r["accession"]),
             description=None,
@@ -140,9 +184,8 @@ def profiles_from_arrays(records: Iterable[Mapping[str, Any]]) -> List[SearchPro
             trans=numpy.array(r["trans"], dtype=numpy.float64),
             stats={k: tuple(map(float, v)) for k, v in dict(r["stats"]).items()},
             cutoffs={k: tuple(map(float, v)) for k, v in dict(r["cutoffs"]).items()},
-        )
-        profiles.append(configure_local(hmm))
-    return profiles
+        ))
+    return configure_many(hmms)
 
 
 def length_model(L: int, multihit: bool = True) -> Tuple[float, float]:

@@ -28,7 +28,7 @@ from ..orf.scan import ScanFinder
 from ..seq import Seq, SeqRecord, reverse_complement, translate
 from .h3m import write_h3m
 from .io import AMINO_ALPHABET, BACKGROUND_F, ProfileHMM, encode_sequence
-from .profile import SearchProfile, configure_local
+from .profile import SearchProfile, configure_many
 
 __all__ = [
     "bench_proteins", "bench_workload", "consensus_proteins", "pfam_shaped_lengths", "pfam_shaped_profiles", "plant_domain",
@@ -44,7 +44,7 @@ def synthetic_profiles(
 ) -> List[SearchProfile]:
     """Generate ``count`` random-but-plausible configured profiles."""
     rng = numpy.random.default_rng(seed)
-    profiles = []
+    hmms = []
     for p in range(count):
         M = int(rng.integers(min_length, max_length + 1))
         match = rng.dirichlet(numpy.full(20, 0.3), size=M + 1)
@@ -63,8 +63,8 @@ def synthetic_profiles(
                 "FORWARD": (-5.0, 0.70),
             },
         )
-        profiles.append(configure_local(hmm))
-    return profiles
+        hmms.append(hmm)
+    return configure_many(hmms)
 
 
 def synthetic_proteins(
@@ -156,7 +156,7 @@ def pfam_shaped_profiles(count: int, seed: int = 0) -> List[SearchProfile]:
     """``synthetic_profiles`` with a real-Pfam length histogram."""
     lengths = pfam_shaped_lengths(count, seed=seed)
     rng = numpy.random.default_rng(seed + 1)
-    profiles = []
+    hmms = []
     for p, M in enumerate(lengths):
         M = int(M)
         match = rng.dirichlet(numpy.full(20, 0.3), size=M + 1)
@@ -175,8 +175,8 @@ def pfam_shaped_profiles(count: int, seed: int = 0) -> List[SearchProfile]:
                 "FORWARD": (-5.0, 0.70),
             },
         )
-        profiles.append(configure_local(hmm))
-    return profiles
+        hmms.append(hmm)
+    return configure_many(hmms)
 
 
 _CODON_BASES = "ACGT"

@@ -95,12 +95,12 @@ def check_minipfam(device):
     from gecco_tpu_torch import seqio
     from gecco_tpu_torch.hmm.io import encode_sequence, parse_hmmer3
     from gecco_tpu_torch.hmm.pipeline import SearchPipeline
-    from gecco_tpu_torch.hmm.profile import configure_local
+    from gecco_tpu_torch.hmm.profile import configure_many
 
     hmm, faa = _fixture("minipfam.hmm"), _fixture("proteins.faa")
     if hmm is None or faa is None:
         return None
-    profiles = [configure_local(p) for p in parse_hmmer3(hmm)]
+    profiles = configure_many(parse_hmmer3(hmm))
     xs = [encode_sequence(str(r.seq)) for r in seqio.parse(faa)]
     cuda = SearchPipeline(profiles, device=device, Z=10, domZ=10, backend="cuda").search(xs)
     plain = SearchPipeline(profiles, device=device, Z=10, domZ=10, backend="torch").search(xs)
