@@ -10,12 +10,45 @@ cannot change what the benchmark feeds it.  Three departures:
   codons), not called and written back, and no protein is cut at 512
   residues;
 * gene, spacer and contig sizes are one fixed set drawn from the
-  configuration's ``size_seed`` (protein lengths lognormal, ``protein_aa``);
-  the run's seed permutes them and draws the residues, strands and planted
-  domains, so every seed gives the same gene count and the same number of
-  base pairs;
+  configuration's ``size_seed``; the run's seed permutes them and draws the
+  residues, strands and planted domains, so every seed gives the same gene
+  count, the same contig sizes in genes and the same number of base pairs;
 * every gene has a ribosome binding site before its start codon (``rbs``:
   a motif, then a gap of random bases), as most bacterial genes do.
+
+The keys of a configuration file (``benchmark/configs/<name>.json``), each
+with its default and the fact of the deployment that it states:
+
+* ``genes`` (required): protein-coding genes in the genome or assembly;
+* ``protein_aa`` (required): ``{"median", "sigma", "min"}``, the lognormal
+  of protein lengths in residues, the initiator counted, the stop not;
+* ``spacer_bp`` (required): the mean length of the sequence between two
+  genes, less the binding site (gamma of shape 2, at least 20 bp);
+* ``rbs`` (required): ``{"motif", "gap"}``, the ribosome binding site;
+* ``cluster_runs`` (required): the sizes in genes of the planted
+  biosynthetic gene clusters, each of one type of ``cluster_domains.json``;
+* ``size_seed`` (required): the seed of the sizes that every run shares;
+* ``profiles``, ``bank_seed`` (required): the bank of
+  :func:`pfam_shaped_profiles`;
+* ``bank_subset`` (default: the whole bank): keep only the first this many
+  profiles and the clusters' accessions (``benchmark/run.py``);
+* ``contig_genes`` (default: one contig named ``genome``): ``{"median",
+  "sigma", "min"}``, an assembly of many contigs, named ``contig00001`` on;
+  genes per contig are drawn lognormally (at least ``min``) until ``genes``
+  are used up, the last contig taking what is left;
+* ``protein_tail`` (default: none): ``{"share", "aa": [lo, hi],
+  "module_aa"}``, a tail of long modular proteins (NRPS and PKS): ``round(share
+  x genes)`` protein lengths drawn log-uniform in ``[lo, hi]``, placed inside
+  the cluster runs as far as they have room (elsewhere after that), each
+  carrying a planted domain every ``module_aa`` residues;
+* ``gc3`` (default: synonymous codons equally likely): the G+C share at
+  third codon positions that the codon choice aims at, over the Easel
+  background's amino acids;
+* ``spacer_gc`` (default: 0.5, bases equally likely): the G+C share of the
+  spacers and of the binding site's gap.
+
+Without the last four keys, every seed gives the same bytes and the same
+random draws as before they existed.
 
 Probabilities are rounded to float32 here, as the ``.h3m`` stores them, so
 the program (which reads the file) and the reference (which takes the
@@ -72,6 +105,20 @@ class GeneRecord:
     profile: Optional[int]    # planted profile index, None if nothing planted
     domain: Tuple[int, int]   # planted residues, 1-based inclusive protein coordinates
     cluster: Optional[str]    # type of the planted cluster run the gene is in
+    #: the plants after the first (``profile``, ``domain``): a gene of the
+    #: protein tail carries one a module
+    extra: Tuple[Tuple[int, Tuple[int, int]], ...] = ()
+    tail: bool = False        # one of the ``protein_tail``'s long proteins
+
+    @property
+    def plants(self) -> List[Tuple[int, Tuple[int, int]]]:
+        """Every ``(profile, domain)`` planted in the gene."""
+        return [] if self.profile is None else [(self.profile, self.domain), *self.extra]
+
+    @property
+    def aa(self) -> int:
+        """Protein length: the initiator counted, the stop not."""
+        return (self.end - self.start + 1) // 3 - 1
 
 
 @dataclasses.dataclass
@@ -82,6 +129,11 @@ class Genome:
     @property
     def bp(self) -> int:
         return sum(len(seq) for _, seq in self.contigs)
+
+    @property
+    def gc(self) -> float:
+        """The G+C share of every contig together."""
+        return sum(seq.count("G") + seq.count("C") for _, seq in self.contigs) / self.bp
 
 
 def accessions() -> List[str]:
@@ -179,33 +231,92 @@ def _codon_choices():
     return codons, counts
 
 
-def _sizes(config) -> Tuple["numpy.ndarray", "numpy.ndarray", List[int]]:
-    """The fixed set of gene body lengths (codons), spacer lengths and contig
-    gene counts (one contig) that every seed of this configuration shares."""
+def codon_weights(gc3: float) -> "numpy.ndarray":
+    """``[20, 6]`` weights of the synonymous codons (``_codon_choices``' order,
+    0 past an amino acid's count): ``omega`` to the number of G+C at the
+    codon's third position, ``omega`` solved so that codons drawn for the
+    Easel background's amino acids end in G or C with share ``gc3``."""
+    codons, counts = _codon_choices()
+    valid = numpy.arange(codons.shape[1])[None, :] < counts[:, None]
+    third = numpy.isin(codons[:, :, 2], numpy.frombuffer(b"GC", dtype=numpy.uint8)) & valid
+    strong = third.sum(axis=1)
+    weak = counts - strong
+    p_bg = BACKGROUND_F / BACKGROUND_F.sum()
+
+    def share(log_omega: float) -> float:
+        omega = numpy.exp(log_omega)
+        return float(p_bg @ (omega * strong / (omega * strong + weak)))
+
+    lo, hi = -40.0, 40.0
+    if not share(lo) < gc3 < share(hi):
+        raise ValueError(f"gc3 {gc3} is out of reach: {share(lo):.4f} to {share(hi):.4f}")
+    for _ in range(200):
+        mid = 0.5 * (lo + hi)
+        lo, hi = (mid, hi) if share(mid) < gc3 else (lo, mid)
+    omega = numpy.exp(0.5 * (lo + hi))
+    return numpy.where(valid, numpy.where(third, omega, 1.0), 0.0)
+
+
+def _random_bases(rng, size: int, gc: Optional[float]) -> bytes:
+    """``size`` bases, each G or C with probability ``gc`` (None: 0.5, by the
+    draw the generator has always made)."""
+    acgt = numpy.frombuffer(b"ACGT", dtype=numpy.uint8)
+    if gc is None:
+        return bytes(acgt[rng.integers(0, 4, size=size)])
+    return bytes(acgt[rng.choice(4, size=size, p=[(1 - gc) / 2, gc / 2, gc / 2, (1 - gc) / 2])])
+
+
+def _sizes(config) -> Tuple["numpy.ndarray", "numpy.ndarray", "numpy.ndarray", List[int]]:
+    """The fixed set of gene body lengths (codons after the initiator and
+    before the stop) of the ordinary genes and of the protein tail, spacer
+    lengths and contig gene counts that every seed of this configuration
+    shares.  Each optional key draws only when it is there, after the draws
+    that it follows."""
     rng = numpy.random.default_rng(config["size_seed"])
     n = config["genes"]
     shape = config["protein_aa"]
-    aa = rng.lognormal(numpy.log(shape["median"]), shape["sigma"], size=n)
-    # codons after the initiator and before the stop
+    tail = config.get("protein_tail")
+    k = int(round(tail["share"] * n)) if tail else 0
+    aa = rng.lognormal(numpy.log(shape["median"]), shape["sigma"], size=n - k)
     codons = numpy.maximum(numpy.round(aa), shape["min"]).astype(int) - 1
+    tail_codons = numpy.zeros(0, dtype=int)
+    if tail:
+        lo, hi = tail["aa"]
+        if not (0 <= k <= n and 0 < lo <= hi and tail["module_aa"] > 160):
+            raise ValueError(f"protein_tail {tail}: share in [0, 1], 0 < lo <= hi, "
+                             "module_aa > 160 (the room of one planted domain)")
+        tail_codons = numpy.round(numpy.exp(rng.uniform(numpy.log(lo), numpy.log(hi), size=k)))
+        tail_codons = tail_codons.astype(int) - 1
     counts = [n]
+    if "contig_genes" in config:
+        layout = config["contig_genes"]
+        counts, left = [], n
+        while left > 0:
+            c = max(int(round(rng.lognormal(numpy.log(layout["median"]), layout["sigma"]))),
+                    layout["min"], 1)
+            counts.append(min(c, left))
+            left -= counts[-1]
     spacers = numpy.maximum(20, rng.gamma(2.0, config["spacer_bp"] / 2.0,
                                           size=n + len(counts)).astype(int))
-    return codons, spacers, counts
+    return codons, tail_codons, spacers, counts
 
 
 def make_genome(config, bank: Sequence[Profile], seed: int) -> Genome:
-    """The genome (one contig) of ``config`` for ``seed``.
+    """The genome or assembly of ``config`` for ``seed``: one contig named
+    ``genome``, or with ``contig_genes`` contigs ``contig00001``, ... .
 
     Gene ``i`` (in genome order) carries a diverged domain of profile
     ``(13 i) mod P`` when ``i mod 4 != 3``; the genes of each planted cluster
     run carry, one each and in turn, the domains of its type's accessions.
-    The contig starts and ends with a spacer.
+    A gene of the protein tail carries a domain every ``module_aa`` residues:
+    inside a run, its own and then the run's next accessions in turn;
+    outside, ``(13 i) mod P`` each time.  Each contig starts and ends with a
+    spacer and holds whole genes.
     """
-    codons_of, spacers, counts = _sizes(config)
+    codons_of, tail_of, spacers, counts = _sizes(config)
     rng = numpy.random.default_rng(seed)
     n = config["genes"]
-    lengths = codons_of[rng.permutation(n)]
+    lengths = codons_of[rng.permutation(len(codons_of))]
     spacers = spacers[rng.permutation(len(spacers))]
     counts = [counts[i] for i in rng.permutation(len(counts))]
     index = {gm.accession: i for i, gm in enumerate(bank)}
@@ -215,12 +326,12 @@ def make_genome(config, bank: Sequence[Profile], seed: int) -> Genome:
     # cluster runs: each inside one contig, not overlapping another run
     first = numpy.concatenate(([0], numpy.cumsum(counts)))
     planted: Dict[int, Tuple[int, str]] = {}
+    cycles: Dict[int, Tuple[List[int], int]] = {}
     for size in config["cluster_runs"]:
         kind = sorted(cluster_domains)[int(rng.integers(len(cluster_domains)))]
-        for _ in range(1000):
-            c = int(rng.integers(len(counts)))
-            if counts[c] < size:
-                continue
+        roomy = [c for c, count in enumerate(counts) if count >= size]
+        for _ in range(1000 if roomy else 0):
+            c = roomy[int(rng.integers(len(roomy)))]
             at = first[c] + int(rng.integers(counts[c] - size + 1))
             if all(g not in planted for g in range(at, at + size)):
                 break
@@ -229,8 +340,29 @@ def make_genome(config, bank: Sequence[Profile], seed: int) -> Genome:
         domains = [index[acc] for acc in cluster_domains[kind]]
         for j in range(size):
             planted[at + j] = (domains[j % len(domains)], kind)
+            cycles[at + j] = (domains, j)
+
+    # the protein tail: inside the runs first, then anywhere else
+    tail = numpy.zeros(n, dtype=bool)
+    if len(tail_of):
+        runs = sorted(planted)
+        inside = rng.choice(runs, size=min(len(tail_of), len(runs)), replace=False)
+        rest = [g for g in range(n) if g not in planted]
+        outside = rng.choice(rest, size=len(tail_of) - len(inside), replace=False)
+        tail[numpy.concatenate((inside, outside)).astype(int)] = True
+        full = numpy.empty(n, dtype=int)
+        full[tail] = tail_of[rng.permutation(len(tail_of))]
+        full[~tail] = lengths
+        lengths = full
+    module = config["protein_tail"]["module_aa"] if len(tail_of) else 0
 
     codon_table, codon_counts = _codon_choices()
+    weights = codon_weights(config["gc3"]) if "gc3" in config else None
+    if weights is not None:
+        cumulative = numpy.cumsum(weights, axis=1) / weights.sum(axis=1, keepdims=True)
+        # the last codon of each amino acid takes every draw above the others
+        cumulative[numpy.arange(weights.shape[1])[None, :] >= codon_counts[:, None] - 1] = numpy.inf
+    spacer_gc = config.get("spacer_gc")
     motif = config["rbs"]["motif"].encode()
     gap = int(config["rbs"]["gap"])
     p_bg = BACKGROUND_F / BACKGROUND_F.sum()
@@ -242,14 +374,13 @@ def make_genome(config, bank: Sequence[Profile], seed: int) -> Genome:
     contigs: List[Tuple[str, str]] = []
     g, s = 0, 0
     for c, count in enumerate(counts):
-        contig = "genome"
+        contig = "genome" if "contig_genes" not in config else f"contig{c + 1:05d}"
         parts: List[bytes] = []
         pos = 0
 
         def spacer():
             nonlocal s, pos
-            part = bytes(numpy.frombuffer(b"ACGT", dtype=numpy.uint8)[
-                rng.integers(0, 4, size=int(spacers[s]))])
+            part = _random_bases(rng, int(spacers[s]), spacer_gc)
             s += 1
             pos += len(part)
             parts.append(part)
@@ -263,20 +394,29 @@ def make_genome(config, bank: Sequence[Profile], seed: int) -> Genome:
                 profile, kind = (13 * g) % len(bank), None
             else:
                 profile, kind = None, None
-            domain = (0, 0)
-            if profile is not None:
+            # (profile, body index of the domain's first residue)
+            wanted = [] if profile is None else [(profile, 10)]
+            if tail[g]:
+                cycle, j = cycles.get(g, ([(13 * g) % len(bank)], 0))
+                wanted = [(cycle[(j + m) % len(cycle)], 10 + m * module)
+                          for m in range((len(body) + 1) // module)]
+            plants = []
+            for profile, offset in wanted:
                 gm = bank[profile]
-                body, planted_n = plant_domain(body, gm.match, rng, max_len=min(150, gm.M))
-                # protein = initiator M + body; body index 10 is residue 12
-                domain = (12, 11 + planted_n) if planted_n else (0, 0)
-                if not planted_n:
-                    profile = None
+                body, planted_n = plant_domain(body, gm.match, rng, offset=offset,
+                                               max_len=min(150, gm.M))
+                # protein = initiator M + body; body index i is residue i + 2
+                if planted_n:
+                    plants.append((profile, (offset + 2, offset + 1 + planted_n)))
+            (profile, domain), extra = (plants[0], plants[1:]) if plants else ((None, (0, 0)), [])
             u = pick[offsets[g] : offsets[g + 1]]
-            choice = (u * codon_counts[body]).astype(numpy.int64)
+            if weights is None:
+                choice = (u * codon_counts[body]).astype(numpy.int64)
+            else:
+                choice = (u[:, None] >= cumulative[body]).sum(axis=1)
             dna = b"ATG" + codon_table[body, choice].tobytes() + b"TAA"
             # the ribosome binding site: the motif, then a gap of random bases
-            rbs = motif + bytes(numpy.frombuffer(b"ACGT", dtype=numpy.uint8)[
-                rng.integers(0, 4, size=gap)])
+            rbs = motif + _random_bases(rng, gap, spacer_gc)
             if strands[g] < 0:
                 unit = (rbs + dna).translate(_COMPLEMENT)[::-1]
                 begin = pos
@@ -286,6 +426,7 @@ def make_genome(config, bank: Sequence[Profile], seed: int) -> Genome:
             genes.append(GeneRecord(
                 contig=contig, start=begin + 1, end=begin + len(dna), strand=int(strands[g]),
                 protein_id=f"{contig}_{k + 1}", profile=profile, domain=domain, cluster=kind,
+                extra=tuple(extra), tail=bool(tail[g]),
             ))
             parts.append(unit)
             pos += len(unit)
@@ -334,7 +475,8 @@ def write_fasta(path: str, genome: Genome) -> None:
 def write_predict_tables(genes_path: str, features_path: str, genome: Genome, bank,
                          seed: int, hmm: str = "Pfam") -> None:
     """The tables ``gecco predict`` resumes from: every generated gene, and a
-    row for each planted domain with a p-value drawn under the p-filter."""
+    row for each planted domain (several on a gene of the protein tail) with
+    a p-value drawn under the p-filter."""
     rng = numpy.random.default_rng([seed, 1])
     strand = {1: "+", -1: "-"}
     with open(genes_path, "w") as f:
@@ -345,12 +487,11 @@ def write_predict_tables(genes_path: str, features_path: str, genome: Genome, ba
         f.write("sequence_id\tprotein_id\tstart\tend\tstrand\tdomain\thmm\ti_evalue\tpvalue"
                 "\tdomain_start\tdomain_end\n")
         for g in genome.genes:
-            if g.profile is None:
-                continue
-            pvalue = float(10.0 ** -rng.uniform(10.0, 40.0))
-            f.write(f"{g.contig}\t{g.protein_id}\t{g.start}\t{g.end}\t{strand[g.strand]}"
-                    f"\t{bank[g.profile].accession}\t{hmm}\t{pvalue * len(bank)!r}\t{pvalue!r}"
-                    f"\t{g.domain[0]}\t{g.domain[1]}\n")
+            for profile, domain in g.plants:
+                pvalue = float(10.0 ** -rng.uniform(10.0, 40.0))
+                f.write(f"{g.contig}\t{g.protein_id}\t{g.start}\t{g.end}\t{strand[g.strand]}"
+                        f"\t{bank[profile].accession}\t{hmm}\t{pvalue * len(bank)!r}\t{pvalue!r}"
+                        f"\t{domain[0]}\t{domain[1]}\n")
 
 
 # --- binary HMMER3/f ``.h3m`` writer (a copy of the port's ``write_h3m``) ---

@@ -14,9 +14,10 @@ Gene calling (``run``), against what the generator planted:
 
 The search (``run``), on a sample of the called genes drawn from the seed
 (``SAMPLE_REPORTED`` with reported domains, ``SAMPLE_QUIET`` planted ones
-with none): the reference searches each gene's protein (translated here from
-the FASTA) against every profile that the table reports on it and against
-the profile planted in it, and
+with none, and ``SAMPLE_TAIL`` of the protein tail's long proteins where the
+configuration has one): the reference searches each gene's protein
+(translated here from the FASTA) against every profile that the table
+reports on it and against every profile planted in it, and
 
 * ``search_bits_gap``: the largest gap in bits between a reported domain and
   the reference's domain with the same first and last residue (bits from
@@ -67,8 +68,9 @@ CDS = 3
 #: side of it in float32
 BORDER_BITS = 0.5
 #: genes of a call whose search the reference makes again: ones with
-#: reported domains, and planted ones with none (where a lost hit hides)
-SAMPLE_REPORTED, SAMPLE_QUIET = 24, 48
+#: reported domains, planted ones with none (where a lost hit hides) and,
+#: drawn after those, long proteins of the protein tail
+SAMPLE_REPORTED, SAMPLE_QUIET, SAMPLE_TAIL = 24, 48, 8
 #: hmmsearch's filter gates and reporting threshold, as the CLI runs them
 F1, F2, F3, E = 0.02, 1e-3, 1e-5, 10.0
 #: a pair this close to a gate (in bits) may fall either side of it in float32
@@ -201,8 +203,9 @@ class Reference:
 
     def sample(self, out: Outputs) -> List[dict]:
         """Called genes whose search is checked, drawn from the seed: some with
-        reported domains and some planted ones with none; none running off
-        its contig (its first codon then reads as called)."""
+        reported domains, some planted ones with none and, where the genome
+        has a protein tail, some of its long proteins; none running off its
+        contig (its first codon then reads as called)."""
         reported = {r["protein_id"] for r in out.features}
         inner = [r for r in out.genes
                  if int(r["start"]) > 1 and int(r["end"]) < len(self.contigs[r["sequence_id"]])]
@@ -210,26 +213,35 @@ class Reference:
         picked = []
         for group, size in (
                 ([r for r in inner if r["protein_id"] in reported], SAMPLE_REPORTED),
-                ([r for r in inner if r["protein_id"] not in reported
-                  and self.planted(r) is not None], SAMPLE_QUIET)):
+                ([r for r in inner if r["protein_id"] not in reported and self.planted(r)],
+                 SAMPLE_QUIET)):
             picked += [group[i] for i in rng.choice(len(group), size=min(size, len(group)),
+                                                    replace=False)]
+        if any(g.tail for g in self.genome.genes):
+            ids = {r["protein_id"] for r in picked}
+            group = [r for r in inner if r["protein_id"] not in ids
+                     and getattr(self.generated(r), "tail", False)]
+            picked += [group[i] for i in rng.choice(len(group), size=min(SAMPLE_TAIL, len(group)),
                                                     replace=False)]
         return sorted(picked, key=lambda r: (r["sequence_id"], int(r["start"])))
 
-    def planted(self, row) -> Optional[int]:
-        """The profile planted in the generated gene that ends at this called
-        gene's stop codon, if any."""
+    def generated(self, row) -> Optional[synthetic.GeneRecord]:
+        """The generated gene that ends at this called gene's stop codon."""
         strand = 1 if row["strand"] == "+" else -1
         stop = int(row["end"]) if strand > 0 else int(row["start"])
-        gene = self.stops.get((row["sequence_id"], strand, stop))
-        return None if gene is None else gene.profile
+        return self.stops.get((row["sequence_id"], strand, stop))
+
+    def planted(self, row) -> List[int]:
+        """The profiles planted in the generated gene that ends at this called
+        gene's stop codon (none if no such gene)."""
+        gene = self.generated(row)
+        return [] if gene is None else sorted({profile for profile, _ in gene.plants})
 
     def searched(self, row, rows_of_gene) -> List[int]:
         """Profiles the reference searches on a sampled gene: those reported on
-        it and the one planted in it."""
+        it and those planted in it."""
         profiles = {self.by_accession[r["domain"]] for r in rows_of_gene}
-        if self.planted(row) is not None:
-            profiles.add(self.planted(row))
+        profiles.update(self.planted(row))
         return sorted(profiles)
 
     # --- the judgement -------------------------------------------------------
@@ -319,7 +331,9 @@ class Reference:
                         unmatched += 1
                         self.notes.append(f"in the reference, not reported: {gene['protein_id']} "
                                           f"{gm.accession} {d}; reported {reported}")
-        self.notes.append(f"search: {len(sample)} genes sampled, "
+        tail = sum(1 for g in sample if getattr(self.generated(g), "tail", False))
+        self.notes.append(f"search: {len(sample)} genes sampled"
+                          + (f" ({tail} of the protein tail)" if tail else "") + ", "
                           f"{sum(1 for g in sample if g['protein_id'] in rows)} with domains, "
                           f"{pairs} pairs searched again; {len(out.features)} domains in all")
         return {"search_bits_gap": float(bits_gap), "search_coord_gap": coord_gap,

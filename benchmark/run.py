@@ -12,10 +12,10 @@ each number compared).  Each per-layer metric is read by
 1. set-up: makes the inputs from ``--seed`` in a directory of its own under
    ``TMPDIR`` (the profile bank as ``.h3m``, the genome as FASTA, for
    ``predict`` the genes and features tables) and makes one warm-up call on
-   a cut of them (``WARM``: 64 genes, 64 profiles), which finds or builds
-   the program's kernels in the checkout and reports whether the call saw
-   the cards the cell needs.  Every call is a process of its own, so nothing
-   else that a call warms outlives it;
+   a cut of them (``warm_config``: 64 genes on one contig, 64 profiles),
+   which finds or builds the program's kernels in the checkout and reports
+   whether the call saw the cards the cell needs.  Every call is a process
+   of its own, so nothing else that a call warms outlives it;
 2. the window: calls start back to back, each ``benchmark/child.py`` in a
    process of its own, while less than ``--seconds`` has passed; the last
    runs to its end.  With ``--trace 1`` each call adds ``--profile DIR``.
@@ -55,6 +55,16 @@ ROOT = os.getcwd()
 HERE = os.path.dirname(os.path.abspath(__file__))
 #: the warm-up call's cut of the configuration
 WARM = {"genes": 64, "bank_subset": 64, "cluster_runs": [10]}
+
+
+def warm_config(config: dict) -> dict:
+    """The warm-up call's configuration: ``WARM``'s sizes where they are
+    smaller, on one contig (an assembly's small contigs may have no room for
+    ``WARM``'s cluster run; the warm-up builds kernels, which do not depend on
+    the contigs)."""
+    cut = {key: min(value, config.get(key, value)) if key != "cluster_runs" else value
+           for key, value in WARM.items()}
+    return {key: value for key, value in dict(config, **cut).items() if key != "contig_genes"}
 
 
 def log(*parts) -> None:
@@ -203,13 +213,12 @@ def _run(args, bench, cell, config, traffic, work) -> int:
 
     bank, genome, paths = make_inputs(config, traffic, args.seed, work)
     log(f"inputs: {len(genome.contigs)} contigs, {genome.bp} bp, {len(genome.genes)} genes, "
-        f"{len(bank)} profiles, {sum(gm.M for gm in bank)} nodes "
+        f"{len(bank)} profiles, {sum(gm.M for gm in bank)} nodes, G+C {genome.gc:.4f}, "
+        f"longest protein {max(g.aa for g in genome.genes)} aa "
         f"({time.perf_counter() - _STARTED:.3f} s)")
     warm = os.path.join(work, "warm")
     os.mkdir(warm)
-    cut = {key: min(value, config.get(key, value)) if key != "cluster_runs" else value
-           for key, value in WARM.items()}
-    _, _, warm_paths = make_inputs(dict(config, **cut), traffic, args.seed, warm, bank=bank)
+    _, _, warm_paths = make_inputs(warm_config(config), traffic, args.seed, warm, bank=bank)
     env = child_env(work)
     base = "genome"
 

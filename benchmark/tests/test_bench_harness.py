@@ -137,3 +137,39 @@ def test_one_call_on_the_card(tmp_path):
     assert done.returncode == 0, done.stderr[-4000:]
     line = json.loads(done.stdout.strip().splitlines()[-1])
     assert line["correct"] is True and line["device"]["platform"] == "gpu"
+
+
+#: a cell that uses every optional key of a configuration at a size a CPU
+#: test holds: two contigs of 30 genes, one protein of the tail past 4,096
+#: residues with four planted modules, a GC-rich codon choice and spacers
+MIXED = {"genes": 60, "bank_subset": 40, "cluster_runs": [12],
+         "contig_genes": {"median": 30, "sigma": 0.0, "min": 20},
+         "protein_tail": {"share": 0.02, "aa": [4200, 4400], "module_aa": 1000},
+         "gc3": 0.9, "spacer_gc": 0.7}
+
+
+def test_cpu_run_of_a_cell_with_every_optional_key(tmp_path):
+    root = make_copy(str(tmp_path))
+    base = os.path.join(root, "benchmark")
+    with open(os.path.join(base, "configs", "genome.json")) as f:
+        config = json.load(f)
+    config.update(MIXED)
+    with open(os.path.join(base, "configs", "mixed.json"), "w") as f:
+        json.dump(config, f)
+    bench_path = os.path.join(root, "BENCHMARK.json")
+    with open(bench_path) as f:
+        bench = json.load(f)
+    bench["configs"].append({"name": "mixed", "source": "t", "file": "benchmark/configs/mixed.json",
+                             "reduced": [], "why": "t"})
+    bench["workloads"].append({"name": "mixed.run", "config": "mixed", "traffic": "run",
+                               "chips": 1, "why": "t"})
+    with open(bench_path, "w") as f:
+        json.dump(bench, f)
+    code, line, err = run_bench(root, "--workload", "mixed.run", "--seed", str(2**31 + 77),
+                                "--seconds", "1", "--trace", "0")
+    assert code == 0, err
+    assert line["correct"] is True, err
+    assert "inputs: 2 contigs" in err
+    assert re.search(r"longest protein (\d+) aa", err) and \
+        int(re.search(r"longest protein (\d+) aa", err).group(1)) > 4096
+    assert "(1 of the protein tail)" in err, err
