@@ -21,7 +21,9 @@ Phases (each prints its wall seconds, each ends in a device sync):
    their planted profiles (the bank's width classes in turn) and against
    the wide profile, one launch per width class as the search makes
    them, and over the envelope rows those pairs yield (every class has
-   rows); the pair kernels J and K over the same pairs and rows, beside
+   rows); D-G again on rows of up to 6,000 residues against profiles of
+   the 1,024-, 2,048- and 4,096-node classes, one launch a class (G over
+   whole sequences), their launches counted over those calls alone; the pair kernels J and K over the same pairs and rows, beside
    D + E and F + G, and kernels B and C over each row's envelope as a
    residue window (``ranges``; a window of the whole sequence equal to
    the launch without one); the dense kernel H in both semirings over 32 proteins against
@@ -168,6 +170,10 @@ HEAD = 48
 #: proteins and profiles (``13 i mod 2,766``, those planted in the first
 #: proteins and others) of phase 9b's float64 host path
 HOST_PROTEINS, HOST_PROFILES = 16, 64
+#: the long rows of kernels D-G: model lengths of the 1,024-, 2,048- and
+#: 4,096-node classes, and sequence lengths past JAX's 4,096-residue pack
+#: limit (and one short row, zeros past it to the stride)
+LONG_MODELS, LONG_SEQS = (1000, 2000, 2200), (6000, 5900, 300)
 #: learning rate of phase 9e's step over 8a's ~115,000 windows (a summed loss)
 TRAIN_STEP_LR = 1e-5
 #: absolute tolerances (nats, or probabilities): max-plus kernels are
@@ -601,6 +607,7 @@ def phase_kernels(device, report, kernels):
                      dense_nodes(bank), 3)
     phase_dense_kernel(device, bank, seqs[:DENSE_PROTEINS], report)
     phase_domain_kernels(device, profiles, bank, report, kernels)
+    phase_long_domain_rows(device, report)
 
 
 def phase_ssv_widths(device, report):
@@ -841,6 +848,120 @@ def phase_domain_kernels(device, profiles, bank, report, kernels):
     print(f"# windowed pair kernels: {len(s_env)} envelope windows, {cells!r} cells; whole-"
           f"sequence windows of {len(s_all)} pairs equal the launches without ranges",
           flush=True)
+
+
+def phase_long_domain_rows(device, report):
+    """Kernels D-G against their plain versions on rows of up to 6,000
+    residues (``LONG_SEQS``, a domain of each profile planted in the second)
+    against profiles of the 1,024-, 2,048- and 4,096-node classes
+    (``LONG_MODELS``), one launch a class as ``StreamDomains`` makes them:
+    D, E on plain D's outputs, F, and G on plain F's planes over whole
+    sequences (every residue a long chain); zeros past each row's length;
+    each kernel's launches counted over these calls alone.  The plain
+    versions step residue by residue, so each runs once (its time is that
+    one call).  The log scales run over every residue, summed in double
+    precision."""
+    from gecco_tpu_torch import _build
+    from gecco_tpu_torch.hmm import stream
+    from gecco_tpu_torch.hmm.bank import TorchBank
+    from gecco_tpu_torch.hmm.kernels import SeqPack
+    from gecco_tpu_torch.hmm.synthetic import plant_domain, synthetic_profiles
+
+    profiles = [gm for seed, m in enumerate(LONG_MODELS)
+                for gm in synthetic_profiles(1, min_length=m, max_length=m, seed=70 + seed)]
+    rng = numpy.random.default_rng(17)
+    seqs = [rng.integers(0, 20, n).astype(numpy.int32) for n in LONG_SEQS]
+    for gm, offset in zip(profiles, (100, 1800, 3700)):
+        seqs[1] = plant_domain(seqs[1], gm, rng, offset=offset, max_len=min(gm.M, 1500),
+                               divergence=0.2)
+    bank = TorchBank.build(profiles, device)
+    pack = SeqPack(seqs, device)
+    lengths = bank.lengths.cpu().numpy()
+    classes = bank.class_of.tolist()
+    require(classes == [1024, 2048, 4096], f"long rows: classes {classes}")
+    s_all = numpy.repeat(numpy.arange(len(seqs)), len(profiles))
+    p_all = numpy.tile(numpy.arange(len(profiles)), len(seqs))
+    groups = [(s_all[bank.class_of[p_all] == w], p_all[bank.class_of[p_all] == w])
+              for w in classes]
+    print(f"# long domain rows: sequences of {list(LONG_SEQS)} residues against "
+          f"{list(LONG_MODELS)} nodes, one group a class {classes}", flush=True)
+
+    def zero_past(name, s_idx, *tensors):
+        """Require each ``[k, n, stride, ...]`` tensor to be zero at every
+        row's residues past its length."""
+        for t in tensors:
+            lens = torch.as_tensor(pack.lens_host[s_idx], device=device)
+            past = torch.arange(t.shape[2], device=device)[None, :] >= lens[:, None]
+            require(bool((t[:, past] == 0).all()), f"long rows: {name} wrote past a row's length")
+
+    checks = {name: [] for name in ("posterior_fwd", "posterior_bwd", "align_bwd", "align_fwd")}
+    ms = dict.fromkeys(checks, 0.0)
+    plain_ms = dict.fromkeys(checks, 0.0)
+    work = {name: [0.0, 0.0] for name in checks}
+    calls = dict.fromkeys(checks, 0)
+
+    def held(name, fn, plain, s_idx, p_idx, *args, in_bytes=0.0, cells_to=None):
+        """Kernel ``name``'s output, timed (CUDA events, once after a
+        warm-up call), and its plain version's from one timed call, with
+        the work of one call."""
+        got, t = timed_ms(lambda: fn(pack, bank, s_idx, p_idx, *args), 1)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = plain(pack, bank, s_idx, p_idx, *args)
+        end.record()
+        torch.cuda.synchronize()
+        t_plain = start.elapsed_time(end)
+        ms[name] += t
+        plain_ms[name] += t_plain
+        calls[name] += 2
+        out_bytes = sum(float(x.numel() * x.element_size())
+                        for x in (got if isinstance(got, tuple) else (got,)))
+        f, b = pair_work(pack, lengths, s_idx, p_idx, FLOPS_PER_CELL[name], out_bytes + in_bytes)
+        if cells_to is not None:
+            f = FLOPS_PER_CELL[name] * float(
+                (numpy.asarray(cells_to, numpy.float64) * lengths[p_idx]).sum())
+        work[name][0] += f
+        work[name][1] += b
+        return got, want
+
+    t0 = time.perf_counter()
+    _build.reset_launches()
+    for s_idx, p_idx in groups:
+        (traj, score), (want_traj, want_score) = held(
+            "posterior_fwd", stream.posterior_fwd, stream.posterior_fwd_plain, s_idx, p_idx)
+        checks["posterior_fwd"] += [("trajectory", traj[:4], want_traj[:4]),
+                                    ("log_scale", traj[4], want_traj[4]),
+                                    ("log_scale", score, want_score)]
+        zero_past("posterior_fwd", s_idx, traj)
+        post, want_post = held("posterior_bwd", stream.posterior_bwd, stream.posterior_bwd_plain,
+                               s_idx, p_idx, want_traj, want_score,
+                               in_bytes=float(want_traj.numel() * 4 + want_score.numel() * 4))
+        checks["posterior_bwd"].append(("trajectory", post, want_post))
+        zero_past("posterior_bwd", s_idx, post)
+        (planes, logs), (want_planes, want_logs) = held(
+            "align_bwd", stream.align_bwd, stream.align_bwd_plain, s_idx, p_idx)
+        checks["align_bwd"] += [("planes", planes, want_planes),
+                                ("log_scale", logs, want_logs)]
+        zero_past("align_bwd", s_idx, planes, logs)
+        iv, jv = numpy.ones(len(s_idx), numpy.int32), pack.lens_host[s_idx]
+        residues = float(jv.sum())
+        got, want = held("align_fwd", stream.align_fwd, stream.align_fwd_plain, s_idx, p_idx,
+                         want_planes, want_logs, iv, jv, want_score, cells_to=jv,
+                         in_bytes=residues * (want_planes.shape[0] * want_planes.shape[3] * 2
+                                              + want_logs.shape[0] * 4) + 12.0 * len(s_idx))
+        require(torch.equal(got[1], want[1]),
+                "align_fwd coordinates differ from plain on the long rows")
+        checks["align_fwd"] += [("log_scale", got[0][:, 0], want[0][:, 0]),
+                                ("logn2", got[0][:, 1:], want[0][:, 1:])]
+        print(f"# long domain rows: class {int(bank.class_of[p_idx[0]])} held, "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    launches = dict(_build.launches)
+    print(f"# long domain rows: launches {json.dumps(launches)}", flush=True)
+    for name in checks:
+        require(launches.get(name) == calls[name],
+                f"long rows: {name} launched {launches.get(name)} times in {calls[name]} calls")
+        report(name, checks[name], ms[name], plain_ms[name], tuple(work[name]),
+               variant="long-row", launches=launches[name])
 
 
 def profiled_search(pipeline, seqs, device, path):
@@ -2103,14 +2224,8 @@ def phase_modules(device, state):
         phase_cli_options(device, state, out)
 
 
-def main():
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
-        sys.exit(1)
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    device = torch.device("cuda:0")
-    kernels = {}
-    state = {}
+def make_report(kernels):
+    """The ``report`` that each kernel check calls, writing into ``kernels``."""
 
     def report(name, checks, ms, plain_ms, work, variant=None, **extra):
         """Hold a kernel's outputs against its plain version's: ``checks`` are
@@ -2147,6 +2262,19 @@ def main():
             kernels[name] = entry
         else:
             kernels.setdefault(name, {}).setdefault("variants", {})[variant] = entry
+
+    return report
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        sys.exit(1)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    device = torch.device("cuda:0")
+    kernels = {}
+    state = {}
+    report = make_report(kernels)
 
     with Phase("1 device"):
         smi = subprocess.run(

@@ -223,10 +223,10 @@ __device__ __forceinline__ void park_backward(const RowArgs& a, const Row& row, 
             ins[j] = __float2bfloat16_rn(bw.bI[j]);
         }
         if (threadIdx.x == 0) {
-            parked.blog[at] = bw.ls;
-            parked.bNl[at] = init ? NEG : logf(bw.bN + TINY) + bw.ls;
-            parked.bJl[at] = init ? NEG : logf(bw.bJ + TINY) + bw.ls;
-            parked.bCl[at] = init ? logf(row.move) : logf(bw.bC + TINY) + bw.ls;
+            parked.blog[at] = static_cast<float>(bw.ls);
+            parked.bNl[at] = init ? NEG : static_cast<float>(logf(bw.bN + TINY) + bw.ls);
+            parked.bJl[at] = init ? NEG : static_cast<float>(logf(bw.bJ + TINY) + bw.ls);
+            parked.bCl[at] = init ? logf(row.move) : static_cast<float>(logf(bw.bC + TINY) + bw.ls);
         }
     }
 }
@@ -271,8 +271,9 @@ __device__ __forceinline__ void align_forward(const RowArgs& a, const Row& row, 
         sM[j] = sI[j] = sD[j] = NEG;
         qM[j] = qI[j] = qD[j] = -1;
     }
-    float N = 1.0f, B = move, J = 0.0f, C = 0.0f, lsf = 0.0f;
-    float eN = 1.0f, eB = emove, eJ = 0.0f, eC = 0.0f, elog = 0.0f;
+    float N = 1.0f, B = move, J = 0.0f, C = 0.0f;
+    float eN = 1.0f, eB = emove, eJ = 0.0f, eC = 0.0f;
+    double lsf = 0.0, elog = 0.0;  // log scales, summed in double as warp_forward_traj's
     float xocc = 0.0f, best = NEG;
     int b_pay = 0, b_row = 0, b_node = 0;
 
@@ -285,9 +286,12 @@ __device__ __forceinline__ void align_forward(const RowArgs& a, const Row& row, 
         }
         const int at = i - parked.origin;  // the residue's parked row
         // special-state posteriors from the Forward values before the step
-        const float ppN = expf(logf(N + TINY) + lsf + log_loop + parked.bNl[at] - total);
-        const float ppJ = expf(logf(J + TINY) + lsf + log_loop + parked.bJl[at] - total);
-        const float ppC = expf(logf(C + TINY) + lsf + log_loop + parked.bCl[at] - total);
+        const float ppN =
+            expf(static_cast<float>(logf(N + TINY) + lsf + log_loop + parked.bNl[at] - total));
+        const float ppJ =
+            expf(static_cast<float>(logf(J + TINY) + lsf + log_loop + parked.bJl[at] - total));
+        const float ppC =
+            expf(static_cast<float>(logf(C + TINY) + lsf + log_loop + parked.bCl[at] - total));
         xocc += fminf(fmaxf(ppN + ppJ + ppC, 0.0f), 1.0f);
         {   // OA values this thread's last node hands on (old row)
             const int k = base + CHUNK - 1;
@@ -300,7 +304,7 @@ __device__ __forceinline__ void align_forward(const RowArgs& a, const Row& row, 
         }
         lsf += logf(forward_step<THREADS, CHUNK>(Mv, Iv, Dv, N, B, J, C, e, tsm, row.M, loop,
                                                  move, fsh));
-        const float pscale = expf(lsf + parked.blog[at] - total);
+        const float pscale = expf(static_cast<float>(lsf + parked.blog[at] - total));
         elog += logf(forward_step<THREADS, CHUNK>(eM, eI, eD, eN, eB, eJ, eC, e, tsm, row.M,
                                                   eloop, emove, fsh));
 
@@ -419,7 +423,7 @@ __device__ __forceinline__ void align_forward(const RowArgs& a, const Row& row, 
         out[static_cast<size_t>(r) * 22 + 1 + tid] = null2_ratio(dot, mat, ins, xocc);
     }
     if (tid == 0) {
-        out[static_cast<size_t>(r) * 22] = logf(eC * emove + 1e-38f) + elog;
+        out[static_cast<size_t>(r) * 22] = static_cast<float>(logf(eC * emove + 1e-38f) + elog);
         int32_t* c = coords + static_cast<size_t>(r) * 4;
         c[0] = b_pay / PAY;
         c[1] = b_row;
@@ -574,8 +578,11 @@ __device__ __forceinline__ void warp_park_backward(const int8_t* xs, int L, floa
     const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
     float bM[C], bI[C], e[C];
     warp_backward_init<C>(bM, bI, tr, nu, move);
-    float bN = 0.0f, bJ = 0.0f, bC = move, ls = 0.0f;
-    float kept[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // residue o's bN, bJ, bC, ls at lane o mod 32
+    float bN = 0.0f, bJ = 0.0f, bC = move;
+    double ls = 0.0;
+    // residue o's bN, bJ, bC and log scale at lane o mod 32
+    float kept[3] = {0.0f, 0.0f, 0.0f};
+    double kept_ls = 0.0;
     ResidueStreamRev x(xs, L);
     {
         const int x0 = L > 0 ? x.next() : 0;  // residue L-1, the first step's
@@ -621,17 +628,17 @@ __device__ __forceinline__ void warp_park_backward(const int8_t* xs, int L, floa
             kept[0] = bN;
             kept[1] = bJ;
             kept[2] = bC;
-            kept[3] = ls;
+            kept_ls = ls;
         }
         if (k == 0 || o == lo) {  // residues o .. min(o - k + 31, hi), one a lane
             const int mine = o - k + lane;
             if (lane >= k && mine <= hi) {
                 const int at = mine - pk.origin;
                 const bool init = mine == L - 1;
-                pk.blog[at] = kept[3];
-                pk.bNl[at] = init ? NEG : logf(kept[0] + TINY) + kept[3];
-                pk.bJl[at] = init ? NEG : logf(kept[1] + TINY) + kept[3];
-                pk.bCl[at] = init ? logf(move) : logf(kept[2] + TINY) + kept[3];
+                pk.blog[at] = static_cast<float>(kept_ls);
+                pk.bNl[at] = init ? NEG : static_cast<float>(logf(kept[0] + TINY) + kept_ls);
+                pk.bJl[at] = init ? NEG : static_cast<float>(logf(kept[1] + TINY) + kept_ls);
+                pk.bCl[at] = init ? logf(move) : static_cast<float>(logf(kept[2] + TINY) + kept_ls);
             }
         }
     }
@@ -664,7 +671,8 @@ __device__ __forceinline__ void warp_envelope_forward(const int8_t* xs, int iv, 
     float eM[C], eI[C], eD[C], e[C];
 #pragma unroll
     for (int j = 0; j < C; ++j) eM[j] = eI[j] = eD[j] = 0.0f;
-    float eN = 1.0f, eB = emove, eJ = 0.0f, eC = 0.0f, elog = 0.0f;
+    float eN = 1.0f, eB = emove, eJ = 0.0f, eC = 0.0f;
+    double elog = 0.0;  // in double, as warp_forward_traj's log scale
     const int n = jv - iv + 1;
     ResidueStream x(xs + (iv - 1), n);
     {
@@ -681,7 +689,7 @@ __device__ __forceinline__ void warp_envelope_forward(const int8_t* xs, int iv, 
 #pragma unroll
         for (int j = 0; j < C; ++j) e[j] = en[j];
     }
-    if ((threadIdx.x & 31) == 0) *out = logf(eC * emove + 1e-38f) + elog;
+    if ((threadIdx.x & 31) == 0) *out = static_cast<float>(logf(eC * emove + 1e-38f) + elog);
 }
 
 // align_forward for one warp that holds the row, C nodes a lane, all its
@@ -714,11 +722,13 @@ __device__ __forceinline__ void warp_align_forward(const int8_t* xs, int L, floa
         sM[j] = sI[j] = sD[j] = NEG;
         qM[j] = qI[j] = qD[j] = -1;
     }
-    float N = 1.0f, B = move, J = 0.0f, Cs = 0.0f, lsf = 0.0f;
+    float N = 1.0f, B = move, J = 0.0f, Cs = 0.0f;
+    double lsf = 0.0;  // in double, as warp_forward_traj's log scale
     float xpart = 0.0f, best = NEG;
     int b_pay = 0, b_row = 0, b_node = 0;
-    float kept[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // residue i's N, J, C, log scale before
-                                               // its step, at lane i mod 32
+    // residue i's N, J, C and log scale before its step, at lane i mod 32
+    float kept[3] = {0.0f, 0.0f, 0.0f};
+    double kept_ls = 0.0;
     ResidueStream x(xs, L);
     float e[C];
     {
@@ -749,7 +759,7 @@ __device__ __forceinline__ void warp_align_forward(const int8_t* xs, int L, floa
             kept[0] = N;
             kept[1] = J;
             kept[2] = Cs;
-            kept[3] = lsf;
+            kept_ls = lsf;
         }
         // OA values this lane's last node hands to the next lane (old row)
         float in_fm = __shfl_up_sync(FULL, sM[C - 1] + g(T_MM, C - 1), 1);
@@ -763,7 +773,7 @@ __device__ __forceinline__ void warp_align_forward(const int8_t* xs, int L, floa
             in_pm = in_pi = in_pd = -1;
         }
         lsf += logf(warp_forward_step<C>(Mv, Iv, Dv, N, B, J, Cs, e, tr, chain, loop, move));
-        const float pscale = expf(lsf + blog - total);
+        const float pscale = expf(static_cast<float>(lsf + blog - total));
 
         // optimal accuracy: match and insert cells, nodes high to low so
         // that node j-1 still holds the old row
@@ -819,13 +829,13 @@ __device__ __forceinline__ void warp_align_forward(const int8_t* xs, int L, floa
             const int mine = i - k + lane;
             if (lane <= k && mine >= iv - 1) {
                 const int m = mine - pk.origin;
-                const float lsp = kept[3];
-                const float ppN =
-                    expf(logf(kept[0] + TINY) + lsp + log_loop + fetch<RO>(pk.bNl + m) - total);
-                const float ppJ =
-                    expf(logf(kept[1] + TINY) + lsp + log_loop + fetch<RO>(pk.bJl + m) - total);
-                const float ppC =
-                    expf(logf(kept[2] + TINY) + lsp + log_loop + fetch<RO>(pk.bCl + m) - total);
+                const double lsp = kept_ls + log_loop;
+                const float ppN = expf(static_cast<float>(
+                    logf(kept[0] + TINY) + lsp + fetch<RO>(pk.bNl + m) - total));
+                const float ppJ = expf(static_cast<float>(
+                    logf(kept[1] + TINY) + lsp + fetch<RO>(pk.bJl + m) - total));
+                const float ppC = expf(static_cast<float>(
+                    logf(kept[2] + TINY) + lsp + fetch<RO>(pk.bCl + m) - total));
                 xpart += fminf(fmaxf(ppN + ppJ + ppC, 0.0f), 1.0f);
             }
         }

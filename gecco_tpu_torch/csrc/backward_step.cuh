@@ -82,7 +82,8 @@ struct Backward {
     float* U;
     BackwardScratch<THREADS>& sh;
     float bM[CHUNK], bI[CHUNK];
-    float bN, bJ, bC, ls;
+    float bN, bJ, bC;
+    double ls;  // the log scale, summed in double as warp_forward_traj's
 
     // U_k = nm_k + tdd_k U_{k+1}, U_WIDTH = 0 (ends with a barrier), then
     // the initial row.
@@ -125,7 +126,7 @@ struct Backward {
         bN = 0.0f;
         bJ = 0.0f;
         bC = move;
-        ls = 0.0f;
+        ls = 0.0;
     }
 
     // One step to residue o from the carries of o+1, `e` the emission odds
@@ -302,11 +303,11 @@ __device__ __forceinline__ void warp_backward_init(float (&bM)[C], float (&bI)[C
 // carries of o+1: `e` the emission odds of residue o+1 at this lane's
 // nodes, `tr` their transitions (both zero past the model length), `nu`
 // nm and U_{k+1}, `right` chain_scan_right's slopes.  Leaves the rescaled
-// states of o in the carries, adds log(scale) to ls and returns the
-// rescaled bB of o.
+// states of o in the carries, adds log(scale) to ls (in double, as
+// warp_forward_traj sums its log scale) and returns the rescaled bB of o.
 template <int C, typename Trans, typename Nodes>
 __device__ __forceinline__ float warp_backward_step(float (&bM)[C], float (&bI)[C], float& bN,
-                                                    float& bJ, float& bC, float& ls,
+                                                    float& bJ, float& bC, double& ls,
                                                     const float (&e)[C], const Trans& tr,
                                                     const Nodes& nu, const ChainScan& right,
                                                     float loop, float move) {
@@ -371,17 +372,17 @@ struct ForwardTraj {
 //   pB(o) = fB(o) * bB(o) * exp(fls(o) + bls(o) - total),
 //   pE(o) = fE(o) * bE(o) * exp(fls(o) + bls(o) - total), bE = (bJ + bC) / 2,
 //
-// pE only where `pe` is not null.
+// pE only where `pe` is not null.  The exponents are summed in double.
 __device__ __forceinline__ void emit_posterior(const ForwardTraj& f, int o, float loop,
                                                float total, float bN, float bB, float bJ,
-                                               float bC, float ls, float* mocc, float* pb,
+                                               float bC, double ls, float* mocc, float* pb,
                                                float* pe) {
     const float pN = o > 0 ? f.fN[o - 1] : 1.0f;
     const float pJ = o > 0 ? f.fJ[o - 1] : 0.0f;
     const float pC = o > 0 ? f.fC[o - 1] : 0.0f;
     const float pls = o > 0 ? f.flog[o - 1] : 0.0f;
-    const float sc_prev = expf(pls + ls - total);
-    const float sc_cur = expf(f.flog[o] + ls - total);
+    const float sc_prev = expf(static_cast<float>(pls + ls - total));
+    const float sc_cur = expf(static_cast<float>(f.flog[o] + ls - total));
     const float ppN = pN * loop * bN * sc_prev;
     const float ppJ = pJ * loop * bJ * sc_prev;
     const float ppC = pC * loop * bC * sc_prev;
@@ -411,9 +412,11 @@ __device__ __forceinline__ void warp_posterior_row(const int8_t* xs, int L, floa
     const int lane = threadIdx.x & 31;
     float bM[C], bI[C], e[C];
     warp_backward_init<C>(bM, bI, tr, nu, move);
-    float bN = 0.0f, bB = 0.0f, bJ = 0.0f, bC = move, ls = 0.0f;
-    float kept[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};  // residue o's bN, bB, bJ, bC, ls
-                                                    // at lane o mod 32
+    float bN = 0.0f, bB = 0.0f, bJ = 0.0f, bC = move;
+    double ls = 0.0;
+    // residue o's bN, bB, bJ, bC and log scale at lane o mod 32
+    float kept[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    double kept_ls = 0.0;
     ResidueStreamRev x(xs, L);
     {
         const int x0 = L > 0 ? x.next() : 0;  // residue L-1, the first step's
@@ -437,12 +440,12 @@ __device__ __forceinline__ void warp_posterior_row(const int8_t* xs, int L, floa
             kept[1] = bB;
             kept[2] = bJ;
             kept[3] = bC;
-            kept[4] = ls;
+            kept_ls = ls;
         }
         if (k == 0) {  // residues o .. min(o + 31, L - 1), one a lane
             const int mine = o + lane;
             if (mine < L)
-                emit_posterior(f, mine, loop, total, kept[0], kept[1], kept[2], kept[3], kept[4],
+                emit_posterior(f, mine, loop, total, kept[0], kept[1], kept[2], kept[3], kept_ls,
                                mocc, pb, pe);
         }
     }

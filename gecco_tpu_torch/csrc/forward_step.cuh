@@ -338,6 +338,10 @@ __device__ __forceinline__ float warp_forward_step(float (&Mv)[C], float (&Iv)[C
 // floats of each trajectory once every 32 residues (and the rest after the
 // last one).  Returns the score log(C * move + 1e-38) + ls, the same in
 // every lane (-1e30 for an empty sequence).  Nothing past L is written.
+// The log scale is summed in double precision: outside a domain each
+// residue adds a nearly constant small increment that rounds the same way
+// in float32, which drifted by 0.04 nats over 4,700 residues, enough to
+// move an envelope's end; it is stored rounded to float32.
 template <int C, int NT, typename Trans>
 __device__ __forceinline__ float warp_forward_traj(const int8_t* xs, int L, float loop,
                                                    float move, const float* esm,
@@ -349,7 +353,8 @@ __device__ __forceinline__ float warp_forward_traj(const int8_t* xs, int L, floa
     float Mv[C], Iv[C], Dv[C], e[C];
 #pragma unroll
     for (int j = 0; j < C; ++j) Mv[j] = Iv[j] = Dv[j] = 0.0f;
-    float N = 1.0f, B = move, J = 0.0f, Cs = 0.0f, ls = 0.0f, E = 0.0f;
+    float N = 1.0f, B = move, J = 0.0f, Cs = 0.0f, E = 0.0f;
+    double ls = 0.0;
     float kept[NT];  // residue i's values at lane i mod 32
 #pragma unroll
     for (int q = 0; q < NT; ++q) kept[q] = 0.0f;
@@ -374,7 +379,7 @@ __device__ __forceinline__ float warp_forward_traj(const int8_t* xs, int L, floa
             kept[1] = B;
             kept[2] = J;
             kept[3] = Cs;
-            kept[4] = ls;
+            kept[4] = static_cast<float>(ls);
             if constexpr (NT == 6) kept[5] = E;
         }
         if (k == 31 || i == L - 1) {  // residues i - k .. i, one a lane
@@ -384,7 +389,7 @@ __device__ __forceinline__ float warp_forward_traj(const int8_t* xs, int L, floa
             }
         }
     }
-    return L > 0 ? logf(Cs * move + 1e-38f) + ls : NEG;
+    return L > 0 ? static_cast<float>(logf(Cs * move + 1e-38f) + ls) : NEG;
 }
 
 }  // namespace gecco

@@ -191,7 +191,8 @@ pair_posterior_kernel_wide(RowArgs a, const int32_t* __restrict__ out_row, int n
         float Mv[CHUNK], Iv[CHUNK], Dv[CHUNK];
 #pragma unroll
         for (int j = 0; j < CHUNK; ++j) Mv[j] = Iv[j] = Dv[j] = 0.0f;
-        float N = 1.0f, B = row.move, J = 0.0f, C = 0.0f, ls = 0.0f, E = 0.0f;
+        float N = 1.0f, B = row.move, J = 0.0f, C = 0.0f, E = 0.0f;
+        double ls = 0.0;  // in double, as warp_forward_traj's
         for (int i = 0; i < row.L; ++i) {
             const float* e = emission_row(a.e_odds, row, i);
             ls += logf(forward_step<THREADS, CHUNK>(Mv, Iv, Dv, N, B, J, C, e, tsm, row.M,
@@ -202,10 +203,10 @@ pair_posterior_kernel_wide(RowArgs a, const int32_t* __restrict__ out_row, int n
                 fJ[i] = J;
                 fC[i] = C;
                 fE[i] = E;
-                flog[i] = ls;
+                flog[i] = static_cast<float>(ls);
             }
         }
-        if (row.L > 0) score = logf(C * row.move + 1e-38f) + ls;
+        if (row.L > 0) score = static_cast<float>(logf(C * row.move + 1e-38f) + ls);
     }
     const int slot = out_row[r];
     if (threadIdx.x == 0) score_out[slot] = score;

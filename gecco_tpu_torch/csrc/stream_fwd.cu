@@ -144,7 +144,8 @@ posterior_fwd_kernel_wide(RowArgs a, const int32_t* __restrict__ out_row, int n_
     float Mv[CHUNK], Iv[CHUNK], Dv[CHUNK];
 #pragma unroll
     for (int j = 0; j < CHUNK; ++j) Mv[j] = Iv[j] = Dv[j] = 0.0f;
-    float N = 1.0f, B = row.move, J = 0.0f, C = 0.0f, ls = 0.0f;
+    float N = 1.0f, B = row.move, J = 0.0f, C = 0.0f;
+    double ls = 0.0;  // in double, as warp_forward_traj's
     float score = NEG;
 
     for (int i = 0; i < row.L; ++i) {
@@ -156,9 +157,9 @@ posterior_fwd_kernel_wide(RowArgs a, const int32_t* __restrict__ out_row, int n_
             out[rows + i] = B;
             out[2 * rows + i] = J;
             out[3 * rows + i] = C;
-            out[4 * rows + i] = ls;
+            out[4 * rows + i] = static_cast<float>(ls);
         }
-        if (i == row.L - 1) score = logf(C * row.move + 1e-38f) + ls;
+        if (i == row.L - 1) score = static_cast<float>(logf(C * row.move + 1e-38f) + ls);
     }
     for (int i = row.L + threadIdx.x; i < a.stride; i += THREADS) {
 #pragma unroll

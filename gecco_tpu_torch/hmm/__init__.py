@@ -132,6 +132,8 @@ class ProfileHMMAnnotator(DomainAnnotator):
         for key, value in pipeline.stage_counts.items():
             TIMER.count(f"funnel.{key}", value)
         TIMER.count("host_pairs", pipeline.host_pairs)
+        for key, value in pipeline.domain_counts.items():
+            TIMER.count(key, value)
         return gene_index
 
     def _report(self, gene_index: List[Gene], hits) -> None:

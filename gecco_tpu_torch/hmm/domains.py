@@ -190,14 +190,15 @@ class PairDomains(DeviceDomains):
     The TPU's gate (``Lp × Mp`` over ``512 × 512`` cells to the host
     engine) is the size of its VMEM scratch, not of the method.  The
     port's gate: a pair stays on the device if its sequence has at most
-    4,096 residues (``_MAX_LPS``, as :class:`StreamDomains`) and kernel
+    4,096 residues (``_MAX_LPS``, JAX's pack limit) and kernel
     J's shared memory for it fits a block — ``4 (10 width + 1 + 6 L)``
     bytes within 227 KB less 4 KB, which refuses only sequences over
     ~2,680 residues against the 4,096-node class; every narrower class
     takes 4,096 residues.  Kernel K's scratch is device memory, ``4 width``
     bytes a residue of the envelope, cut into launches under
-    :attr:`BYTES_BUDGET`.  :attr:`host_pairs` counts the refused and the
-    overflowing pairs of the last :meth:`define`.  A repeated pair reports
+    :attr:`BYTES_BUDGET`.  :attr:`counts` holds the refused
+    (``host_pairs.length``) and the overflowing pairs of the last
+    :meth:`define`, :attr:`host_pairs` their sum.  A repeated pair reports
     once and an empty sequence has no domains (the TPU kernels clamp its
     length to 1 and score a padding residue).
     """

@@ -14,10 +14,10 @@ stages of hmmsearch:
 4. **domain definition** of the F3 / E-value / bit-cutoff candidates
    by :class:`gecco_tpu_torch.hmm.stream.StreamDomains` (kernels D–G),
    as the JAX package's Pallas path: sequence scores and E-values are
-   the float32 F3 values, with no float64 rescore.  The float64 host
-   engine defines the domains only of pairs whose envelope slots
-   overflow or whose sequence exceeds 4,096 residues; ``host_pairs``
-   counts them.
+   the float32 F3 values, with no float64 rescore, at any sequence
+   length.  The float64 host engine defines the domains only of pairs
+   whose envelope slots overflow; ``domain_counts`` counts the routes and
+   ``host_pairs`` the host engine's pairs.
 
 ``bias_filter=False`` (hmmsearch ``--nobias``) drops the
 composition-bias null from the F1, F2 and F3 gates (plain null1).
@@ -170,8 +170,10 @@ class SearchPipeline:
         self.stage_cells: Dict[str, float] = {}
         #: shards of the last search that ran (1 without ``devices``)
         self.stage_devices = 1
-        #: pairs of the last search whose domains the host engine defined
-        self.host_pairs = 0
+        #: the routes of the last search's domain definition
+        #: (:attr:`~gecco_tpu_torch.hmm.stream.DeviceDomains.counts`; on the
+        #: host path every pair is ``host_pairs.length``)
+        self.domain_counts: Dict[str, int] = dict.fromkeys(StreamDomains.COUNTS, 0)
         #: the (sequence, profile) pairs of the last search that reached
         #: domain definition (``stage_counts["F3"]`` of them)
         self.candidate_pairs: List[Tuple[int, int]] = []
@@ -186,6 +188,11 @@ class SearchPipeline:
         self._torch_bank: Optional[TorchBank] = None
         self._logratio = None
         self._subs: Optional[List["SearchPipeline"]] = None
+
+    @property
+    def host_pairs(self) -> int:
+        """Pairs of the last search whose domains the host engine defined."""
+        return self.domain_counts["host_pairs.length"] + self.domain_counts["host_pairs.overflow"]
 
     @property
     def bank(self) -> TorchBank:
@@ -221,7 +228,7 @@ class SearchPipeline:
         self.stage_seconds = {}
         self.stage_cells = {}
         self.stage_devices = 1
-        self.host_pairs = 0
+        self.domain_counts = dict.fromkeys(StreamDomains.COUNTS, 0)
         self.candidate_pairs = []
         self.rescored_pairs = None
 
@@ -320,7 +327,8 @@ class SearchPipeline:
                 self.stage_seconds[key] = max(self.stage_seconds.get(key, 0.0), value)
             for key, value in sub.stage_cells.items():
                 self.stage_cells[key] = self.stage_cells.get(key, 0.0) + value
-            self.host_pairs += sub.host_pairs
+            for key, value in sub.domain_counts.items():
+                self.domain_counts[key] += value
             candidates.extend((idx[i], p) for i, p in sub.candidate_pairs)
             if sub.rescored_pairs is not None:
                 s_arr, p_arr = sub.rescored_pairs
@@ -403,11 +411,11 @@ class SearchPipeline:
                 # package's Pallas path; reported scores are the f32 F3 values
                 domains = StreamDomains(bank, self.profiles, backend=backend)
                 domains_of = domains.define(sequences, self.candidate_pairs, pack=pack)
-                self.host_pairs = domains.host_pairs
+                self.domain_counts = dict(domains.counts)
             else:
                 candidates, domains_of = self._rescore_host(
                     sequences, candidates, extras[keep], nullsc, Z)
-                self.host_pairs = len(domains_of)
+                self.domain_counts["host_pairs.length"] = len(domains_of)
 
             hits: List[SequenceHit] = []
             for i, p, bits, pv in candidates:

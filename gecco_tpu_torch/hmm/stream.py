@@ -28,6 +28,12 @@ and one for the rows above, each row read and written in place
 (``StreamDomains`` calls one class at a time).  Each kernel wrapper takes
 the plain version for CPU tensors and launches its kernel (``csrc/``) or
 raises for CUDA tensors.
+
+Kernels D–G (and J and K, which share their passes) and the plain
+versions sum each running log scale in float64 and store it as float32:
+past a domain each residue adds a nearly constant small increment that
+rounds the same way in float32, which drifted 0.04 nats over 4,700
+residues and moved an envelope's end.  Kernel C keeps JAX's float32 sum.
 """
 
 import functools
@@ -37,6 +43,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy
 import torch
 
+from ..profiling import TIMER
 from . import engine
 from .bank import NEG, TorchBank
 from .engine import DomainHit, exp_surv
@@ -58,8 +65,13 @@ __all__ = [
 LOG2 = math.log(2.0)
 TINY = 1e-38
 
-# as ``gecco_tpu.hmm.stream``
-_MAX_LPS = 4096   # streams beyond this fall back to the host engine
+#: ``gecco_tpu.hmm.stream``'s pack limit: JAX sends longer sequences to
+#: its host engine; here it is ``PairDomains``' residue cap, and
+#: ``StreamDomains`` counts its rows past it as ``domains.long_rows``
+_MAX_LPS = 4096
+#: longest sequence kernels G and K take: the optimal-accuracy DP's start
+#: payload, residue x 8,192 + node (``align_pass.cuh``'s ``PAY``), is an int32
+_MAX_ROW = (1 << 31) // 8192 - 1
 #: fixed device slots: regions per pair, envelopes per region
 _N_REGIONS = 8
 _N_ENVS = 4
@@ -317,8 +329,8 @@ def forward_trajectories(rows: "_Rows") -> Tuple[torch.Tensor, torch.Tensor]:
     zero = rows.zeros(R, W)
     col = zero[:, :1]
     M, I, D = zero, zero, zero
-    N, B, J, C, ls = col + 1.0, move.clone(), col.clone(), col.clone(), col.clone()
-    score = torch.full((R, 1), NEG, dtype=torch.float32, device=rows.bank.device)
+    N, B, J, C, ls = col + 1.0, move.clone(), col.clone(), col.clone(), col.double()
+    score = torch.full((R, 1), NEG, dtype=torch.float64, device=rows.bank.device)
     for i in range(int(lens.max()) if R else 0):
         alive = (i < lens)[:, None]
         Mn, In, Dn, Nn, Bn, Jn, Cn, total = _forward_step(
@@ -335,7 +347,7 @@ def forward_trajectories(rows: "_Rows") -> Tuple[torch.Tensor, torch.Tensor]:
             torch.where(alive, new * inv, old)
             for new, old in ((Mn, M), (In, I), (Dn, D), (Nn, N), (Bn, B), (Jn, J), (Cn, C)))
         ls = torch.where(alive, ls_n, ls)
-    return traj, score[:, 0]
+    return traj, score[:, 0].float()
 
 
 # ---------------------------------------------------------------------------
@@ -357,7 +369,7 @@ def _backward(rows: _Rows, v):
     zero = rows.zeros(rows.n, W)
     col = zero[:, :1]
     bM, bI = zero, zero
-    bN, bJ, bC, ls = col, col, col, col
+    bN, bJ, bC, ls = col, col, col, col.double()
     for o in reversed(range(rows.stride)):
         alive = (o < lens)[:, None]
         init = (o == lens - 1)[:, None]
@@ -445,8 +457,8 @@ def backward_posteriors(rows: "_Rows", traj: torch.Tensor, score: torch.Tensor,
         else:
             prev_N, prev_J, prev_C, prev_ls = (
                 t[:, o - 1 : o] for t in (fN, fJ, fC, flog))
-        sc_prev = torch.exp(prev_ls + ls - total)
-        sc_cur = torch.exp(flog[:, o : o + 1] + ls - total)
+        sc_prev = torch.exp((prev_ls + ls - total).float())
+        sc_cur = torch.exp((flog[:, o : o + 1] + ls - total).float())
         ppN = prev_N * loop * bN * sc_prev
         ppJ = prev_J * loop * bJ * sc_prev
         ppC = prev_C * loop * bC * sc_prev
@@ -665,9 +677,9 @@ def align_fwd_plain(pack: SeqPack, bank: TorchBank, seq_idx, prof_idx,
     negs = torch.full((R, W), NEG, dtype=torch.float32, device=device)
     none = torch.full((R, W), -1, dtype=torch.long, device=device)
     M, I, D = zero, zero, zero
-    N, B, J, C, lsf = col + 1.0, move.clone(), col.clone(), col.clone(), col.clone()
+    N, B, J, C, lsf = col + 1.0, move.clone(), col.clone(), col.clone(), col.double()
     eM, eI, eD = zero, zero, zero
-    eN, eB, eJ, eC, elog = col + 1.0, emove.clone(), col.clone(), col.clone(), col.clone()
+    eN, eB, eJ, eC, elog = col + 1.0, emove.clone(), col.clone(), col.clone(), col.double()
     sM, sI, sD = negs, negs, negs
     siM, skM, siI, skI, siD, skD = none, none, none, none, none, none
     best = torch.full((R, 1), NEG, dtype=torch.float32, device=device)
@@ -686,12 +698,12 @@ def align_fwd_plain(pack: SeqPack, bank: TorchBank, seq_idx, prof_idx,
             M, I, D, N, B, J, C, e, tr, v["shifted_tdd"], loop, move)
         inv = 1.0 / tot
         lsf_n = lsf + torch.log(tot)
-        pscale = torch.exp(lsf_n + blog[:, i : i + 1] - total)
+        pscale = torch.exp((lsf_n + blog[:, i : i + 1] - total).float())
         ppM = (Mn * inv) * bMp[:, i, :W].float() * pscale
         ppI = (In * inv) * bIp[:, i, :W].float() * pscale
         matocc = matocc + torch.where(in_env, ppM, 0.0)
         insocc = insocc + torch.where(in_env, ppI, 0.0)
-        pp_x = [torch.exp(torch.log(x + TINY) + lsf + log_loop + bl[:, i : i + 1] - total)
+        pp_x = [torch.exp((torch.log(x + TINY) + lsf + log_loop + bl[:, i : i + 1] - total).float())
                 for x, bl in ((N, bNl), (J, bJl), (C, bCl))]
         xp = torch.clamp(pp_x[0] + pp_x[1] + pp_x[2], 0.0, 1.0)
         xocc = xocc + torch.where(in_env, xp, 0.0)
@@ -807,8 +819,14 @@ class DeviceDomains:
     host engine, runs the alignment stage (:meth:`_align`) over the
     envelope rows, makes one more copy, and assembles the ``DomainHit``
     records on the host (:func:`assemble_domains`).  Pairs that
-    :meth:`_on_device` refuses go to the host engine; :attr:`host_pairs`
-    counts the pairs of the last :meth:`define` that did.
+    :meth:`_on_device` refuses go to the host engine too, never cut.
+
+    :attr:`counts` holds the last :meth:`define`'s routes:
+    ``host_pairs.length`` (pairs :meth:`_on_device` refused),
+    ``host_pairs.overflow`` (pairs whose envelope slots overflowed) and
+    ``domains.long_rows`` (pairs of more than 4,096 residues whose
+    domains the device stages defined); :attr:`host_pairs` is the first
+    two's sum.  Each host engine call is the span ``host-engine``.
     """
 
     #: per-launch cap on the device memory a group of rows takes (bytes):
@@ -819,6 +837,8 @@ class DeviceDomains:
     #: 8 with kernel J's trajectory scratch) and of the ~12 int64/float32
     #: ``[n, stride]`` temporaries of :func:`envelopes`
     POSTERIOR_BYTES = 128
+    #: the keys of :attr:`counts`
+    COUNTS = ("host_pairs.length", "host_pairs.overflow", "domains.long_rows")
 
     def __init__(self, bank: TorchBank, profiles, backend: str = "cuda"):
         if backend not in ("cuda", "torch"):
@@ -826,16 +846,22 @@ class DeviceDomains:
         self.bank = bank
         self.profiles = list(profiles)
         self.backend = backend
-        self.host_pairs = 0
+        self.counts = dict.fromkeys(self.COUNTS, 0)
 
-    def _host(self, sequences, s: int, p: int) -> List[DomainHit]:
-        self.host_pairs += 1
-        return engine.define_domains(self.profiles[p], sequences[s])
+    @property
+    def host_pairs(self) -> int:
+        """Pairs of the last :meth:`define` whose domains the host engine defined."""
+        return self.counts["host_pairs.length"] + self.counts["host_pairs.overflow"]
+
+    def _host(self, sequences, s: int, p: int, cause: str) -> List[DomainHit]:
+        self.counts[f"host_pairs.{cause}"] += 1
+        with TIMER.span("host-engine"):
+            return engine.define_domains(self.profiles[p], sequences[s])
 
     def _on_device(self, length: int, width: int) -> bool:
         """Whether the device stages take a sequence of ``length`` residues
         against a profile of class ``width``."""
-        return length <= _MAX_LPS
+        raise NotImplementedError
 
     def _posteriors(self, pack, s_idx, p_idx) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """``(score [n], mocc [n, stride], pB [n, stride])`` of the rows."""
@@ -856,7 +882,7 @@ class DeviceDomains:
         """Domains of each distinct pair ``(s, p)``, sorted by envelope;
         ``pack`` holds ``sequences`` on the bank's device."""
         bank = self.bank
-        self.host_pairs = 0
+        self.counts = dict.fromkeys(self.COUNTS, 0)
         out: Dict[Tuple[int, int], List[DomainHit]] = {}
         by_class: Dict[int, List[Tuple[int, int]]] = {}
         for s, p in dict.fromkeys((int(s), int(p)) for s, p in pairs):
@@ -866,7 +892,7 @@ class DeviceDomains:
                 continue                    # no residues, no domains
             width = int(bank.class_of[p])
             if not self._on_device(L, width):
-                out[(s, p)] = self._host(sequences, s, p)
+                out[(s, p)] = self._host(sequences, s, p, "length")
                 continue
             by_class.setdefault(width, []).append((s, p))
         if not by_class:
@@ -901,8 +927,9 @@ class DeviceDomains:
             scores = block[:, 2 * slots + 1].copy().view(numpy.float32)
             for r, (s, p) in enumerate(members):
                 if block[r, 2 * slots]:
-                    out[(s, p)] = self._host(sequences, s, p)
+                    out[(s, p)] = self._host(sequences, s, p, "overflow")
                     continue
+                self.counts["domains.long_rows"] += len(sequences[s]) > _MAX_LPS
                 for i0, j0 in zip(block[r, :slots], block[r, slots : 2 * slots]):
                     if j0 >= i0:
                         env_rows.setdefault(int(bank.class_of[p]), []).append(
@@ -933,9 +960,19 @@ class StreamDomains(DeviceDomains):
     E are the posterior stage, kernels F and G the alignment stage (split
     into launches as JAX splits its dispatches), the ``DomainHit``
     assembly that of ``stream.py:1679-1726``.  Sequences over 4,096
-    residues go to the host engine as in JAX (``stream.py:1499-1501``).
-    Kernel F parks the Backward planes of each row's whole sequence.
+    residues run D–G too, where JAX sends them to its host engine
+    (``stream.py:1499-1501``): the kernels' rows are as long as the
+    launch's ``stride``, and a row over the byte budget is a launch of its
+    own.  Kernel F parks the Backward planes of each row's whole sequence.
     """
+
+    def _on_device(self, length: int, width: int) -> bool:
+        """Every pair.  Kernel G's start payload caps a sequence at
+        ``_MAX_ROW`` residues, which no protein nears: a longer one raises."""
+        if length > _MAX_ROW:
+            raise ValueError(f"a sequence of {length} residues: kernel G takes at most "
+                             f"{_MAX_ROW}")
+        return True
 
     def _posteriors(self, pack, s_idx, p_idx):
         fwd, bwd, _abwd, _afwd = _KERNELS[self.backend]

@@ -27,9 +27,9 @@ from gecco_tpu_torch.hmm.pipeline import SearchPipeline
 from gecco_tpu_torch.hmm.synthetic import (
     consensus_proteins, plant_domain, synthetic_profiles, synthetic_proteins)
 from gecco_tpu_torch.hmm.stream import (
-    ALIGN_FWD_BLOCK_ROWS, DOMAIN_BLOCK_ROWS, FORWARD_BLOCK_ROWS, StreamDomains, align_bwd,
-    align_bwd_plain, align_fwd, align_fwd_plain, envelopes, forward_pairs, forward_pairs_plain,
-    posterior_bwd, posterior_bwd_plain, posterior_fwd, posterior_fwd_plain)
+    _MAX_LPS, ALIGN_FWD_BLOCK_ROWS, DOMAIN_BLOCK_ROWS, FORWARD_BLOCK_ROWS, StreamDomains,
+    align_bwd, align_bwd_plain, align_fwd, align_fwd_plain, envelopes, forward_pairs,
+    forward_pairs_plain, posterior_bwd, posterior_bwd_plain, posterior_fwd, posterior_fwd_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -447,6 +447,102 @@ def test_align_fwd_kernel_edges(domain_edge_rows):
         assert torch.equal(coords, want_coords)
     print(f"kernel G on the node bank ({len(groups)} classes): largest difference "
           f"{errs[0]!r} nats (envelope score), {errs[1]!r} (null2 log-ratios)")
+
+
+#: model lengths of the 1,024-, 2,048- and 4,096-node classes and the
+#: lengths of the long rows' sequences, past JAX's 4,096-residue pack limit
+LONG_MODELS = (1000, 2000, 2200)
+LONG_SEQS = (6000, 5900, 300)
+
+
+@pytest.fixture(scope="module")
+def long_domain_rows(device):
+    """Rows of kernels D-G of about 6,000 residues: a random sequence, one
+    carrying a diverged domain of each profile of ``LONG_MODELS`` and one of
+    300 residues (zeros past it to the stride), against every profile, one
+    group per width class as ``StreamDomains`` makes them."""
+    profiles = [gm for seed, m in enumerate(LONG_MODELS)
+                for gm in synthetic_profiles(1, min_length=m, max_length=m, seed=70 + seed)]
+    rng = numpy.random.default_rng(17)
+    seqs = [rng.integers(0, 20, n).astype(numpy.int32) for n in LONG_SEQS]
+    for gm, offset in zip(profiles, (100, 1800, 3700)):
+        seqs[1] = plant_domain(seqs[1], gm, rng, offset=offset, max_len=min(gm.M, 1500),
+                               divergence=0.2)
+    bank = TorchBank.build(profiles, device)
+    assert bank.class_of.tolist() == [1024, 2048, 4096]
+    s_idx = numpy.repeat(numpy.arange(len(seqs)), len(profiles))
+    p_idx = numpy.tile(numpy.arange(len(profiles)), len(seqs))
+    width = bank.class_of[p_idx]
+    groups = [(s_idx[width == w], p_idx[width == w]) for w in sorted(set(width.tolist()))]
+    return profiles, seqs, SeqPack(seqs, device), bank, groups
+
+
+def test_domain_kernels_on_long_rows(long_domain_rows):
+    """Kernels D-G against their plain versions on rows of up to 6,000
+    residues at the 1,024-, 2,048- and 4,096-node classes, one launch a
+    class: D's trajectories and score, E's posteriors on plain D's, F's
+    planes and logs, G on plain F's planes over the envelopes the plain
+    posteriors give (each row's first, else the whole sequence) and over
+    whole sequences; zeros past each row's length.  The log scales run
+    over every residue (summed in double precision).  The largest
+    differences are printed."""
+    _profiles, _seqs, pack, bank, groups = long_domain_rows
+    errs = dict.fromkeys(("traj", "log scale", "post", "planes", "logs", "G"), 0.0)
+    for s_idx, p_idx in groups:
+        traj, score = posterior_fwd(pack, bank, s_idx, p_idx)
+        want_traj, want_score = posterior_fwd_plain(pack, bank, s_idx, p_idx)
+        _close(traj[:4], want_traj[:4], 1e-4)
+        _close(traj[4], want_traj[4], 1e-3)
+        _close(score, want_score, 1e-3)
+        post = posterior_bwd(pack, bank, s_idx, p_idx, want_traj, want_score)
+        want_post = posterior_bwd_plain(pack, bank, s_idx, p_idx, want_traj, want_score)
+        _close(post, want_post, 1e-4)
+        past = _past_length(pack, s_idx, traj.shape[2])
+        assert (traj[:, past] == 0).all() and (post[:, past] == 0).all()
+        planes, logs = align_bwd(pack, bank, s_idx, p_idx)
+        want_planes, want_logs = align_bwd_plain(pack, bank, s_idx, p_idx)
+        _close(planes, want_planes, 1e-30, rtol=2.0 ** -7)
+        _close(logs, want_logs, 1e-3)
+        assert (planes[:, past] == 0).all() and (logs[:, past] == 0).all()
+        lens = pack.lens[torch.as_tensor(s_idx, device=pack.device)]
+        env_i, env_j, _over = envelopes(want_post[0], want_post[1], lens)
+        ok = env_j >= env_i
+        first = torch.argmax(ok.int(), dim=1, keepdim=True)
+        has = ok.any(dim=1)
+        iv = torch.where(has, env_i.gather(1, first)[:, 0], 1).to(torch.int32).cpu().numpy()
+        jv = torch.where(has, env_j.gather(1, first)[:, 0], lens).to(torch.int32).cpu().numpy()
+        for env in ((iv, jv), (numpy.ones_like(jv), pack.lens_host[s_idx])):
+            out, coords = align_fwd(pack, bank, s_idx, p_idx, want_planes, want_logs, *env,
+                                    want_score)
+            want_out, want_coords = align_fwd_plain(pack, bank, s_idx, p_idx, want_planes,
+                                                    want_logs, *env, want_score)
+            _close(out, want_out, 1e-3)
+            assert torch.equal(coords, want_coords)
+            errs["G"] = max(errs["G"], float((out - want_out).abs().max()))
+        errs["traj"] = max(errs["traj"], float((traj[:4] - want_traj[:4]).abs().max()))
+        errs["log scale"] = max(errs["log scale"], float((traj[4] - want_traj[4]).abs().max()),
+                                float((score - want_score).abs().max()))
+        errs["post"] = max(errs["post"], float((post - want_post).abs().max()))
+        diff = (planes.float() - want_planes.float()).abs()
+        errs["planes"] = max(errs["planes"],
+                             float((diff / want_planes.float().abs().clamp(min=1e-30)).max()))
+        errs["logs"] = max(errs["logs"], float((logs - want_logs).abs().max()))
+    print("kernels D-G on rows of up to 6,000 residues: largest differences "
+          + ", ".join(f"{name} {value!r}" for name, value in errs.items()))
+
+
+def test_stream_domains_long_rows_cuda_matches_torch(long_domain_rows):
+    """``StreamDomains`` on the long rows: no pair to the host engine, every
+    long row defined by kernels D-G, the domains of the plain versions."""
+    profiles, seqs, pack, bank, groups = long_domain_rows
+    pairs = [(int(s), int(p)) for s_idx, p_idx in groups for s, p in zip(s_idx, p_idx)]
+    domains = StreamDomains(bank, profiles)
+    got = domains.define(seqs, pairs, pack)
+    long = sum(1 for s, _ in pairs if len(seqs[s]) > _MAX_LPS)
+    assert domains.counts == {"host_pairs.length": 0, "host_pairs.overflow": 0,
+                              "domains.long_rows": long}
+    assert sum(map(len, got.values())) >= len(LONG_MODELS)
+    _same_domains(got, StreamDomains(bank, profiles, backend="torch").define(seqs, pairs, pack))
 
 
 @pytest.mark.parametrize("kernel, plain, tol", [

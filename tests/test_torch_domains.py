@@ -29,6 +29,7 @@ from gecco_tpu.hmm.stream import (
 from gecco_tpu.hmm.synthetic import (
     pfam_shaped_profiles, plant_domain, synthetic_profiles, synthetic_proteins)
 
+from gecco_tpu_torch.hmm import engine as port_engine
 from gecco_tpu_torch.hmm import stream
 from gecco_tpu_torch.hmm.bank import TorchBank
 from gecco_tpu_torch.hmm.domains import (
@@ -354,6 +355,107 @@ def test_stream_domains_edge_cases_match_host_engine(edge_cases, backend):
         assert (a.target_from, a.target_to) == (b.target_from, b.target_to)
         assert (a.hmm_from, a.hmm_to) == (b.hmm_from, b.hmm_to)
         assert a.bitscore == pytest.approx(b.bitscore, abs=5e-2)
+
+
+def _coords(d):
+    return (d.ienv, d.jenv, d.target_from, d.target_to, d.hmm_from, d.hmm_to)
+
+
+@pytest.fixture(scope="module")
+def long_rows():
+    """A seeded sequence of 4,400 residues, past JAX's 4,096-residue pack
+    limit, carrying a diverged domain of a 1,030-node profile (the
+    2,048-node class) and two of a 100-node profile (the 128-node class);
+    the domains of both pairs from the port's float64 engine and from
+    JAX's ``StreamDomains``, which sends them to its host engine."""
+    narrow = synthetic_profiles(1, min_length=100, max_length=100, seed=31)[0]
+    wide = synthetic_profiles(1, min_length=1030, max_length=1030, seed=32)[0]
+    profiles = [narrow, wide]
+    rng = numpy.random.default_rng(43)
+    x = synthetic_proteins(1, mean_length=6000, seed=44)[0][:4400]
+    x = plant_domain(x, wide, rng, offset=60, max_len=wide.M, divergence=0.1)
+    for offset in (1200, 1500):
+        x = plant_domain(x, narrow, rng, offset=offset, max_len=narrow.M, divergence=0.1)
+    assert len(x) == 4400 > stream._MAX_LPS
+    seqs, pairs = [x], [(0, 0), (0, 1)]
+    port = _port(profiles)
+    want = {(s, p): port_engine.define_domains(port[p], seqs[s]) for s, p in pairs}
+    jax_doms = JaxStreamDomains(ProfileBank.build(profiles), profiles).define(
+        seqs, pairs, interpret=True)
+    return port, seqs, pairs, want, jax_doms
+
+
+@pytest.mark.parametrize("backend", ["cuda", "torch"])
+def test_stream_domains_long_rows_match_host_engine(long_rows, backend):
+    """Rows longer than 4,096 residues stay on the device stages (D–G;
+    on the CPU both backends take the plain versions): no pair goes to the
+    host engine, and the envelopes and alignment coordinates are the
+    float64 engine's and JAX's, the bits within 1e-2 of both (a float32
+    sum of the log scales missed the wide domain's by 0.19 bits)."""
+    profiles, seqs, pairs, want, jax_doms = long_rows
+    domains = StreamDomains(TorchBank.build(profiles, "cpu"), profiles, backend=backend)
+    got = domains.define(seqs, pairs, SeqPack(seqs, "cpu"))
+    assert domains.host_pairs == 0
+    assert domains.counts["domains.long_rows"] == len(pairs)
+    assert [len(got[key]) for key in pairs] == [len(want[key]) for key in pairs] == [2, 1]
+    for key in pairs:
+        assert [_coords(d) for d in got[key]] == [_coords(d) for d in want[key]] == [
+            _coords(d) for d in jax_doms[key]]
+        for a, b, c in zip(got[key], want[key], jax_doms[key]):
+            assert a.bitscore == pytest.approx(b.bitscore, abs=1e-2)
+            assert a.bitscore == pytest.approx(c.bitscore, abs=1e-2)
+
+
+def test_long_row_posteriors_match_float64_engine(long_rows):
+    """The posterior stage over 4,400 residues (kernels D and E, plain
+    versions): the Forward score within 1e-3 nats and ``mocc`` within 1e-3
+    of the float64 engine's at every residue.  Summed in float32, the log
+    scales drifted by 0.04 nats over such a row, which lifted ``mocc`` by
+    0.04 everywhere past the domains."""
+    profiles, seqs, pairs, *_ = long_rows
+    pack, bank = SeqPack(seqs, "cpu"), TorchBank.build(profiles, "cpu")
+    s_idx, p_idx = (numpy.array([pair[k] for pair in pairs]) for k in (0, 1))
+    traj, score = posterior_fwd(pack, bank, s_idx, p_idx)
+    post = posterior_bwd(pack, bank, s_idx, p_idx, traj, score)
+    x = seqs[0]
+    for r, p in enumerate(p_idx):
+        fwd, bwd = port_engine.forward(profiles[p], x), port_engine.backward(profiles[p], x)
+        mocc = port_engine.posterior_decode(profiles[p], x, fwd, bwd).mocc[1 : len(x) + 1]
+        assert float(score[r]) == pytest.approx(fwd.score, abs=1e-3)
+        numpy.testing.assert_allclose(post[0, r].numpy(), mocc, atol=1e-3, rtol=0)
+
+
+def test_stream_domains_long_row_overflow_goes_to_host_engine(long_rows):
+    """A sequence of 4,300 residues carrying a 20-node profile sixteen
+    times has more regions than the eight slots: the pair goes to the host
+    engine (``host_pairs.overflow``, not a long row defined on the device)
+    and reports exactly its domains."""
+    _profiles, seqs, *_ = long_rows
+    small = _port(synthetic_profiles(1, min_length=20, max_length=20, seed=4))
+    rng = numpy.random.default_rng(47)
+    many = seqs[0][:4300].copy()
+    for c in range(16):
+        many = plant_domain(many, small[0], rng, offset=3000 + 40 * c, max_len=20,
+                            divergence=0.0)
+    domains = StreamDomains(TorchBank.build(small, "cpu"), small, backend="torch")
+    got = domains.define([many], [(0, 0)], SeqPack([many], "cpu"))
+    assert domains.counts == {
+        "host_pairs.length": 0, "host_pairs.overflow": 1, "domains.long_rows": 0}
+    assert domains.host_pairs == 1
+    want = port_engine.define_domains(small[0], many)
+    assert len(want) > 8
+    assert [dataclasses.astuple(d) for d in got[(0, 0)]] == [dataclasses.astuple(d) for d in want]
+
+
+def test_stream_domains_refuses_rows_past_kernel_g_payload():
+    """A sequence longer than kernel G's int32 start payload allows raises,
+    before any launch: it is neither cut nor sent to the host engine."""
+    profiles = _port(synthetic_profiles(1, min_length=20, max_length=20, seed=4))
+    seqs = [numpy.zeros(stream._MAX_ROW + 1, dtype=numpy.int32)]
+    domains = StreamDomains(TorchBank.build(profiles, "cpu"), profiles, backend="torch")
+    with pytest.raises(ValueError, match="kernel G takes at most 262143"):
+        domains.define(seqs, [(0, 0)], SeqPack(seqs, "cpu"))
+    assert domains.host_pairs == 0
 
 
 def test_stream_domains_splits_launches_by_byte_budget(cell, monkeypatch):

@@ -21,7 +21,9 @@ import torch
 
 from gecco_tpu_torch import _build
 from gecco_tpu_torch.cli import main
+from gecco_tpu_torch.hmm import stream
 from gecco_tpu_torch.hmm.pipeline import SearchPipeline
+from gecco_tpu_torch.hmm.stream import StreamDomains
 from gecco_tpu_torch.profiling import SPANS_FILE, TIMER, StageTimer
 
 from test_torch_cli import inputs  # noqa: F401  (the module's genome fixture)
@@ -208,6 +210,9 @@ def test_funnel_and_device_counters(plain_run):
     assert {k[len("funnel."):]: v for k, v in counters.items()
             if k.startswith("funnel.")} == pipeline.stage_counts
     assert counters["host_pairs"] == pipeline.host_pairs
+    # the domain stage's routes, each counted, host_pairs their sum
+    assert {key: counters[key] for key in StreamDomains.COUNTS} == pipeline.domain_counts
+    assert counters["host_pairs"] == counters["host_pairs.length"] + counters["host_pairs.overflow"]
     # the F1 mask, the Viterbi and Forward scores, the envelopes and the alignments
     assert counters["host_reads"] == 5
     bank = pipeline.bank
@@ -257,6 +262,37 @@ def test_stage_seconds_are_the_spans(multidomain, devices):
             assert span["parent"] == outer.id
             assert span["device"] == ("cpu" if devices else None)
     assert spans["build-bank"][0]["parent"] == outer.id
+
+
+@pytest.mark.parametrize("devices", [None, ["cpu", "cpu"]], ids=["one", "shards"])
+def test_host_engine_spans_and_route_counts(multidomain, monkeypatch, devices):
+    """Each pair the host engine defines is a span ``host-engine`` under its
+    shard's ``domains``; ``domain_counts`` counts the pairs the device
+    stages refuse (here every sequence longer than the shortest) and the
+    long rows defined on the device (here every row past 0 residues),
+    summed over shards, and ``host_pairs`` is the refused and overflowing
+    pairs."""
+    profiles, seqs = multidomain
+    shortest = min(map(len, seqs))
+    monkeypatch.setattr(StreamDomains, "_on_device", lambda self, length, width: length == shortest)
+    monkeypatch.setattr(stream, "_MAX_LPS", 0)
+    TIMER.reset()
+    pipeline = SearchPipeline(profiles, device="cpu", Z=6, domZ=6, devices=devices)
+    assert pipeline.search(seqs)
+    counts = pipeline.domain_counts
+    on_device = [(s, p) for s, p in pipeline.candidate_pairs if len(seqs[s]) == shortest]
+    assert 0 < len(on_device) < len(pipeline.candidate_pairs)
+    assert counts == {"host_pairs.length": len(pipeline.candidate_pairs) - len(on_device),
+                      "host_pairs.overflow": 0, "domains.long_rows": len(on_device)}
+    assert pipeline.host_pairs == counts["host_pairs.length"]
+    spans = _by_name(TIMER.export())
+    ids = {s["id"]: s for s in TIMER.export()["spans"]}
+    assert len(spans["host-engine"]) == pipeline.host_pairs
+    for span in spans["host-engine"]:
+        parent = ids[span["parent"]]
+        assert parent["name"] == "domains"
+        assert span["device"] == parent["device"] == ("cpu" if devices else None)
+        assert parent["start_ns"] <= span["start_ns"] <= span["end_ns"] <= parent["end_ns"]
 
 
 def test_kernel_builds_counts_builds(monkeypatch, tmp_path):
