@@ -13,12 +13,12 @@ import hashlib
 import os
 import subprocess
 import tempfile
-from typing import List, Optional, Tuple
+from typing import Optional, Tuple
 
 import numpy
 
-__all__ = ["load", "ensure_built", "path", "native_candidates", "native_hexamer_counts",
-           "native_scores"]
+__all__ = ["load", "ensure_built", "path", "native_candidates", "native_annotate",
+           "native_hexamer_counts", "native_scores", "native_select"]
 
 _PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCE = os.path.join(_PACKAGE, "csrc", "host", "orfscan.cpp")
@@ -88,6 +88,18 @@ def load() -> Optional[ctypes.CDLL]:
         ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32), ctypes.c_int,
         ctypes.POINTER(ctypes.c_double),
     ]
+    lib.orfscan_annotate.restype = None
+    lib.orfscan_annotate.argtypes = [
+        ctypes.POINTER(ctypes.c_int8), ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_uint8), ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int8), ctypes.POINTER(ctypes.c_int8),
+    ]
+    lib.orfscan_select.restype = ctypes.c_int
+    lib.orfscan_select.argtypes = [
+        ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(ctypes.c_double), ctypes.c_int, ctypes.c_double, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int32),
+    ]
     _lib = lib
     return _lib
 
@@ -118,18 +130,64 @@ def native_candidates(
         capacity *= 2
 
 
-def native_hexamer_counts(codes: "numpy.ndarray", spans: List[Tuple[int, int]]) -> Optional["numpy.ndarray"]:
+def native_annotate(
+    codes: "numpy.ndarray", starts: "numpy.ndarray", flags: "numpy.ndarray",
+) -> Optional[Tuple["numpy.ndarray", "numpy.ndarray"]]:
+    """``(codon, rbs)`` int8 classes of each candidate (``scan._annotate``)."""
+    lib = load()
+    if lib is None:
+        return None
+    codes8 = numpy.ascontiguousarray(codes, dtype=numpy.int8)
+    starts32 = numpy.ascontiguousarray(starts, dtype=numpy.int32)
+    flags8 = numpy.ascontiguousarray(flags, dtype=numpy.uint8)
+    if len(starts32) and not (0 <= starts32.min() and starts32.max() + 3 <= len(codes8)):
+        raise ValueError("candidate start outside the sequence")
+    codon = numpy.empty(len(starts32), dtype=numpy.int8)
+    rbs = numpy.empty(len(starts32), dtype=numpy.int8)
+    lib.orfscan_annotate(
+        _ptr(codes8, ctypes.c_int8), len(codes8),
+        _ptr(starts32, ctypes.c_int32), _ptr(flags8, ctypes.c_uint8), len(starts32),
+        _ptr(codon, ctypes.c_int8), _ptr(rbs, ctypes.c_int8),
+    )
+    return codon, rbs
+
+
+def native_select(
+    starts: "numpy.ndarray", ends: "numpy.ndarray", scores: "numpy.ndarray",
+    floor: float, max_overlap: int,
+) -> Optional["numpy.ndarray"]:
+    """Indices of the DP's selected candidates, in order of end (``scan._select``)."""
+    lib = load()
+    if lib is None:
+        return None
+    starts32 = numpy.ascontiguousarray(starts, dtype=numpy.int32)
+    ends32 = numpy.ascontiguousarray(ends, dtype=numpy.int32)
+    values = numpy.ascontiguousarray(scores, dtype=numpy.float64)
+    if not len(starts32) == len(ends32) == len(values):
+        raise ValueError("starts, ends and scores differ in length")
+    out = numpy.empty(len(starts32), dtype=numpy.int32)
+    count = lib.orfscan_select(
+        _ptr(starts32, ctypes.c_int32), _ptr(ends32, ctypes.c_int32),
+        _ptr(values, ctypes.c_double), len(values), float(floor), int(max_overlap),
+        _ptr(out, ctypes.c_int32),
+    )
+    return out[:count].astype(numpy.intp)
+
+
+def native_hexamer_counts(codes: "numpy.ndarray", spans) -> Optional["numpy.ndarray"]:
+    """In-frame hexamer counts (plus one) over ``[k, 2]`` spans ``(begin, end)``."""
     lib = load()
     if lib is None:
         return None
     codes8 = numpy.ascontiguousarray(codes, dtype=numpy.int8)
     counts = numpy.ones(4096, dtype=numpy.float64)
-    if spans:
-        begins = numpy.array([b for b, _ in spans], dtype=numpy.int32)
-        ends = numpy.array([e for _, e in spans], dtype=numpy.int32)
+    if len(spans):
+        span_arr = numpy.asarray(spans, dtype=numpy.int32).reshape(-1, 2)
+        begins = numpy.ascontiguousarray(span_arr[:, 0])
+        ends = numpy.ascontiguousarray(span_arr[:, 1])
         lib.orfscan_hexamer_counts(
             _ptr(codes8, ctypes.c_int8), len(codes8),
-            _ptr(begins, ctypes.c_int32), _ptr(ends, ctypes.c_int32), len(spans),
+            _ptr(begins, ctypes.c_int32), _ptr(ends, ctypes.c_int32), len(begins),
             _ptr(counts, ctypes.c_double),
         )
     return counts

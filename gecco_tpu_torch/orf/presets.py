@@ -61,11 +61,11 @@ def train_preset(
 ) -> Preset:
     """Fit a preset from an annotated genome.
 
-    ``genes`` are (start, end, strand) with 1-based inclusive
-    coordinates on the forward strand (the ``genes.tsv`` convention,
-    ``gecco_tpu_torch.tables.GeneTable``).  The statistics mirror the second
-    (retrain) pass of ``ScanFinder._fit_model``, with the annotation
-    standing in for the provisional gene set.
+    ``genes`` are (start, end, strand) rows, triples or a ``[k, 3]``
+    array, with 1-based inclusive coordinates on the forward strand (the
+    ``genes.tsv`` convention, ``gecco_tpu_torch.tables.GeneTable``).  The
+    statistics mirror the second (retrain) pass of ``ScanFinder._fit_model``,
+    with the annotation standing in for the provisional gene set.
 
     ``strands`` optionally reuses an already-built ``(forward,
     reverse)`` :class:`scan._StrandData` pair — candidate enumeration
@@ -73,8 +73,7 @@ def train_preset(
     (``ScanFinder._call_short_denovo``) already holds one.
     """
     from .scan import (
-        _RBS_MOTIFS, _STARTS, W_UP_WINDOW, _StrandData, _encode,
-        _hexamer_counts)
+        W_UP_WINDOW, _StrandData, _hexamer_counts, _start_log_odds, _upstream_codes)
     from ..seq import reverse_complement
 
     seq = sequence.upper()
@@ -84,17 +83,17 @@ def train_preset(
     else:
         forward = _StrandData(seq, 1, False)
         reverse = _StrandData(reverse_complement(seq), -1, False)
+    # each annotated gene as (start, end) on its own strand: 0-based, half-open
+    rows = numpy.asarray(genes, dtype=numpy.int64).reshape(-1, 3)
+    on_forward = rows[:, 2] >= 0
+    spans = {
+        1: numpy.stack((rows[on_forward, 0] - 1, rows[on_forward, 1]), axis=1),
+        -1: numpy.stack((n - rows[~on_forward, 1], n - rows[~on_forward, 0] + 1), axis=1),
+    }
 
     # hexamer statistics over the annotated coding spans (stop excluded)
-    spans_f: List[Tuple[int, int]] = []
-    spans_r: List[Tuple[int, int]] = []
-    for start, end, strand in genes:
-        if strand >= 0:
-            spans_f.append((start - 1, end - 3))
-        else:
-            spans_r.append((n - end, n - start + 1 - 3))
-    coding = (_hexamer_counts(forward.codes, spans_f, pseudocount)
-              + _hexamer_counts(reverse.codes, spans_r, pseudocount)
+    coding = (_hexamer_counts(forward.codes, spans[1] - (0, 3), pseudocount)
+              + _hexamer_counts(reverse.codes, spans[-1] - (0, 3), pseudocount)
               - pseudocount)
     background = (_hexamer_counts(forward.codes, [(0, n)], pseudocount)
                   + _hexamer_counts(reverse.codes, [(0, n)], pseudocount)
@@ -106,56 +105,40 @@ def train_preset(
     )
 
     # start statistics: the annotated genes' candidates vs all candidates
-    wanted = set()
-    for start, end, strand in genes:
-        if strand >= 0:
-            wanted.add((start - 1, end, 1))
-        else:
-            wanted.add((n - end, n - start + 1, -1))
     chosen = []
-    all_cands = []
     for s in (forward, reverse):
-        for c in s.cands:
-            all_cands.append(c)
-            if (c.start, c.end, s.strand) in wanted:
-                chosen.append(c)
-
-    codon_lo = numpy.zeros(len(_STARTS))
-    for ci, codon in enumerate(_STARTS):
-        sel = sum(1 for c in chosen if c.codon == codon) + 1.0
-        bg = sum(1 for c in all_cands if c.codon == codon) + 1.0
-        # curated-annotation presets warrant Prodigal-strength start
-        # discrimination (its tscore runs ~4.5 bits for the dominant
-        # codon); the penalty side is clipped — with a couple dozen
-        # training genes, a rare codon's log-odds is pseudocount noise
-        # beyond ~-2 (Prodigal likewise bounds its start scores)
-        codon_lo[ci] = max(-2.0, codon_scale * (
-            numpy.log(sel / (len(chosen) + 3.0))
-            - numpy.log(bg / (len(all_cands) + 3.0))
-        ))
-    rbs_lo = numpy.zeros(len(_RBS_MOTIFS) + 1)
-    for b in list(range(len(_RBS_MOTIFS))) + [-1]:
-        sel = sum(1 for c in chosen if c.rbs == b) + 1.0
-        bg = sum(1 for c in all_cands if c.rbs == b) + 1.0
-        rbs_lo[b] = (
-            numpy.log(sel / (len(chosen) + 7.0))
-            - numpy.log(bg / (len(all_cands) + 7.0))
-        )
+        wanted = spans[s.strand]
+        # (start, end) -> start * (n + 1) + end is one-to-one inside the contig
+        inside = (wanted[:, 0] >= 0) & (wanted[:, 1] >= 0) & (wanted[:, 1] <= n)
+        keys = wanted[inside, 0] * (n + 1) + wanted[inside, 1]
+        chosen.append(numpy.flatnonzero(numpy.isin(
+            s.start.astype(numpy.int64) * (n + 1) + s.end, keys)))
+    codon_raw, rbs_lo = _start_log_odds(
+        numpy.concatenate([s.codon[idx] for s, idx in zip((forward, reverse), chosen)]),
+        numpy.concatenate([s.rbs[idx] for s, idx in zip((forward, reverse), chosen)]),
+        numpy.concatenate((forward.codon, reverse.codon)),
+        numpy.concatenate((forward.rbs, reverse.rbs)),
+    )
+    # curated-annotation presets warrant Prodigal-strength start
+    # discrimination (its tscore runs ~4.5 bits for the dominant
+    # codon); the penalty side is clipped — with a couple dozen
+    # training genes, a rare codon's log-odds is pseudocount noise
+    # beyond ~-2 (Prodigal likewise bounds its start scores)
+    codon_lo = numpy.array([max(-2.0, codon_scale * raw) for raw in codon_raw])
 
     # positional upstream base model (Prodigal's uscore analog — the
     # start signal for genomes without Shine-Dalgarno usage): annotated
     # starts' upstream windows vs the genomic base composition
-    codes = _encode(seq)
+    codes = forward.codes
     base_counts = numpy.array([(codes == b).sum() for b in range(4)], float)
     bg = numpy.maximum(base_counts, 1.0) / max(base_counts.sum(), 1.0)
-    up_counts = numpy.ones((W_UP_WINDOW, 4))
-    for c in chosen:
-        u = c.upstream or ""
-        offset = W_UP_WINDOW - len(u)
-        for i, ch in enumerate(u):
-            b = {"A": 0, "C": 1, "G": 2, "T": 3}.get(ch)
-            if b is not None:
-                up_counts[offset + i, b] += 1.0
+    windows = numpy.concatenate([
+        _upstream_codes(s.codes, s.start[idx]) for s, idx in zip((forward, reverse), chosen)])
+    column = numpy.broadcast_to(numpy.arange(W_UP_WINDOW), windows.shape)
+    known = windows >= 0
+    up_counts = 1.0 + numpy.bincount(
+        column[known] * 4 + windows[known], minlength=W_UP_WINDOW * 4,
+    ).reshape(W_UP_WINDOW, 4)
     up_freq = up_counts / up_counts.sum(axis=1, keepdims=True)
     upstream_lo = upstream_scale * numpy.log(up_freq / bg[None, :])
 

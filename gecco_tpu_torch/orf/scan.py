@@ -24,10 +24,13 @@ iterative scheme, re-implemented from scratch):
 fitted on all contigs joined with ``TTAATTAATTAA`` linkers
 (``orf.py:77-85``) and then applied to each contig.  ``cpus`` drives a
 thread pool over contigs exactly like the reference's
-``ThreadPool(cpus).imap`` (``orf.py:95,128-130``); the hot loops run in
-the native core (``native/orfscan.cpp``), whose ctypes calls release
-the GIL for the duration of the native execution — which is why
-``cpus > 1`` gives real per-contig parallelism.
+``ThreadPool(cpus).imap`` (``orf.py:95,128-130``).  The candidates are
+arrays from enumeration to selection, and the loops over nucleotides and
+candidates (enumeration, each candidate's start codon and RBS bin,
+hexamer scoring, the selection DP) run in the native core
+(``csrc/host/orfscan.cpp``), whose ctypes calls release the GIL for the
+duration of the native execution — which is why ``cpus > 1`` gives real
+per-contig parallelism.
 
 Output coordinates are 1-based inclusive like the reference, proteins
 are numbered ``{contig}_{i}`` left-to-right, and the gene qualifiers
@@ -43,6 +46,7 @@ from typing import Callable, Iterable, Iterator, List, Optional, Sequence, Tuple
 import numpy
 
 from ..model import Gene, Protein, Strand
+from ..profiling import TIMER
 from ..seq import Seq, SeqRecord, reverse_complement, translate
 from . import ORFFinder
 
@@ -90,7 +94,7 @@ def _encode(seq: str) -> "numpy.ndarray":
         table[ord(base)] = code
         table[ord(base.lower())] = code
     raw = numpy.frombuffer(seq.encode("ascii", "replace"), dtype=numpy.uint8)
-    return table[numpy.minimum(raw, 127)].astype(numpy.int32)
+    return table[numpy.minimum(raw, 127)]
 
 
 def _mask_spans(codes: "numpy.ndarray", min_run: int = MASK_RUN) -> List[Tuple[int, int]]:
@@ -108,52 +112,47 @@ def _mask_spans(codes: "numpy.ndarray", min_run: int = MASK_RUN) -> List[Tuple[i
     return spans
 
 
-class _Candidate:
-    __slots__ = (
-        "start", "end", "strand", "score",
-        "partial_begin", "partial_end", "codon", "rbs", "upstream",
-    )
+#: candidate flag bits, as the native core writes them (``orfscan.cpp``)
+PARTIAL_BEGIN = 2
+PARTIAL_END = 4
+#: codon class of a start codon outside :data:`_STARTS` (class ``i`` < 3 is
+#: ``_STARTS[i]``, -1 a partial begin, which has none)
+_OTHER = len(_STARTS)
 
-    def __init__(self, start, end, strand, score=0.0,
-                 partial_begin=False, partial_end=False):
-        self.start = start          # 0-based inclusive leftmost nt
-        self.end = end              # 0-based exclusive rightmost nt
-        self.strand = strand
-        self.score = score
-        self.partial_begin = partial_begin
-        self.partial_end = partial_end
-        self.codon: Optional[str] = None
-        self.rbs: int = -1
-        self.upstream: Optional[str] = None  # W_UP_WINDOW nt before start
 
+def _codon_table(values: Iterable[float]) -> "numpy.ndarray":
+    """A start-codon log-odds per codon class: ``_STARTS`` in order, then -2.0
+    for any other codon."""
+    return numpy.array([*values, -2.0], dtype=numpy.float64)
+
+
+#: pass-1 priors (bacterial consensus) per codon class and RBS bin (-1 = none)
+_STATIC_CODON = _codon_table(_START_BONUS[codon] for codon in _STARTS)
+_STATIC_RBS = numpy.array(
+    [_RBS_BONUS.get(len(motif), 1.0) for motif in _RBS_MOTIFS] + [0.0])
 
 MAX_STARTS = 16
 
 
-def _find_orfs(codes: "numpy.ndarray", strand: int, length: int) -> List[_Candidate]:
+def _find_orfs(codes: "numpy.ndarray") -> Tuple["numpy.ndarray", "numpy.ndarray", "numpy.ndarray"]:
     """Enumerate candidate genes on one strand of an encoded sequence.
 
-    ``codes`` must already be the strand's 5'→3' encoding; coordinates
-    are returned relative to that orientation and mapped by the caller.
-    Uses the native core (``native/orfscan.cpp``) when built; the pure
-    Python path below is the reference fallback (tested equal).
+    ``codes`` must already be the strand's 5'→3' encoding; the candidates'
+    ``start`` (inclusive) and ``end`` (exclusive, stop included) are int32
+    in that orientation, and ``flags`` holds :data:`PARTIAL_BEGIN` and
+    :data:`PARTIAL_END`.  Uses the native core (``csrc/host/orfscan.cpp``)
+    when built; the pure Python path below is the reference fallback
+    (tested equal).
     """
     from ._native import native_candidates
 
     native = native_candidates(codes, MIN_GENE, MAX_STARTS)
     if native is not None:
-        starts, ends, flags = native
-        return [
-            _Candidate(
-                int(s), int(e), strand,
-                partial_begin=bool(f & 2), partial_end=bool(f & 4),
-            )
-            for s, e, f in zip(starts, ends, flags)
-        ]
+        return native
     n = len(codes)
     stop_set = {tuple(_BASE[c] for c in s) for s in _STOPS}
     start_set = {tuple(_BASE[c] for c in s) for s in _STARTS}
-    candidates: List[_Candidate] = []
+    found: List[Tuple[int, int, int]] = []
     for frame in range(3):
         stops = [
             i for i in range(frame, n - 2, 3)
@@ -174,20 +173,79 @@ def _find_orfs(codes: "numpy.ndarray", strand: int, length: int) -> List[_Candid
                 if (codes[i], codes[i + 1], codes[i + 2]) in start_set
             ]
             gene_end = region[1] + (3 if is_real_stop else 0)
-            partial_end = not is_real_stop
             if region[0] == frame:
                 # region touches the contig begin: allow a partial gene
                 starts = [region[0]] + [s for s in starts if s != region[0]]
             for s in starts[:MAX_STARTS]:  # cap alternative starts per stop
                 if gene_end - s < MIN_GENE:
                     continue
-                partial_begin = (s == region[0]) and (
-                    (codes[s], codes[s + 1], codes[s + 2]) not in start_set
-                )
-                candidates.append(_Candidate(s, gene_end, strand,
-                                             partial_begin=partial_begin,
-                                             partial_end=partial_end))
-    return candidates
+                flags = 0 if is_real_stop else PARTIAL_END
+                if s == region[0] and (codes[s], codes[s + 1], codes[s + 2]) not in start_set:
+                    flags |= PARTIAL_BEGIN
+                found.append((s, gene_end, flags))
+    table = numpy.array(found, dtype=numpy.int32).reshape(-1, 3)
+    return table[:, 0].copy(), table[:, 1].copy(), table[:, 2].astype(numpy.uint8)
+
+
+def _annotate(codes: "numpy.ndarray", starts: "numpy.ndarray",
+              flags: "numpy.ndarray") -> Tuple["numpy.ndarray", "numpy.ndarray"]:
+    """Each candidate's start-codon class and RBS bin (int8 arrays).
+
+    The codon class indexes :data:`_STARTS` (:data:`_OTHER` for any other
+    codon, -1 for a partial begin).  The RBS bin is the first motif of
+    :data:`_RBS_MOTIFS`, in list order, that occurs anywhere in
+    ``[max(0, start - 15), max(0, start - 4))``; -1 when none does.  Native
+    core when built, else :func:`_annotate_python` (tested equal).
+    """
+    from ._native import native_annotate
+
+    native = native_annotate(codes, starts, flags)
+    if native is not None:
+        return native
+    return _annotate_python(codes, starts, flags)
+
+
+def _annotate_python(codes: "numpy.ndarray", starts: "numpy.ndarray",
+                     flags: "numpy.ndarray") -> Tuple["numpy.ndarray", "numpy.ndarray"]:
+    """The numpy twin of the native ``orfscan_annotate``."""
+    n = len(codes)
+    starts = numpy.asarray(starts, dtype=numpy.int64)
+    codon = numpy.full(len(starts), -1, dtype=numpy.int8)
+    complete = (numpy.asarray(flags) & PARTIAL_BEGIN) == 0
+    at = starts[complete]
+    classes = numpy.full(len(at), _OTHER, dtype=numpy.int8)
+    if len(at):
+        tail = (codes[at + 1] == _BASE["T"]) & (codes[at + 2] == _BASE["G"])
+        for k, start_codon in enumerate(_STARTS):
+            classes[tail & (codes[at] == _BASE[start_codon[0]])] = k
+    codon[complete] = classes
+    lo = numpy.maximum(starts - 15, 0)
+    hi = numpy.maximum(starts - 4, 0)
+    rbs = numpy.full(len(starts), -1, dtype=numpy.int8)
+    for b, motif in enumerate(_RBS_MOTIFS):
+        places = n - len(motif) + 1          # where the motif can begin
+        if places <= 0:
+            continue
+        match = numpy.ones(places, dtype=bool)
+        for k, base in enumerate(motif):
+            match &= codes[k : k + places] == _BASE[base]
+        seen = numpy.concatenate(([0], numpy.cumsum(match)))   # matches before p
+        last = numpy.minimum(hi - len(motif) + 1, places)      # begins in [lo, last)
+        first = numpy.minimum(lo, places)
+        hit = (last > first) & (seen[numpy.maximum(last, first)] > seen[first])
+        rbs[(rbs < 0) & hit] = b
+    return codon, rbs
+
+
+def _upstream_codes(codes: "numpy.ndarray", starts: "numpy.ndarray") -> "numpy.ndarray":
+    """``[len(starts), W_UP_WINDOW]`` int8 codes of the windows before each start.
+
+    Right-aligned (column ``W-1`` = position −1); positions before the
+    sequence and N positions hold −1, which the positional scorer maps to 0.
+    """
+    at = (numpy.asarray(starts, dtype=numpy.int64)[:, None]
+          - W_UP_WINDOW + numpy.arange(W_UP_WINDOW)[None, :])
+    return numpy.where(at >= 0, codes[numpy.maximum(at, 0)], -1).astype(numpy.int8)
 
 
 def _gc_percent(codes: "numpy.ndarray") -> float:
@@ -243,56 +301,60 @@ def _hexamer_counts(codes: "numpy.ndarray", spans: Sequence[Tuple[int, int]],
 
 
 class _StrandData:
-    """One strand of a training/inference sequence, with candidates."""
+    """One strand of a training/inference sequence, with its candidates as arrays.
 
-    __slots__ = ("seq5", "codes", "cands", "strand", "_up_codes")
+    ``start``/``end`` (int32, 0-based half-open, strand-oriented), ``flags``
+    (:data:`PARTIAL_BEGIN`, :data:`PARTIAL_END`), ``codon`` and ``rbs`` (int8,
+    see :func:`_annotate`): one entry per candidate, in enumeration order.
+    """
 
-    def upstream_codes(self) -> "numpy.ndarray":
-        """``[n_cands, W_UP_WINDOW]`` encoded upstream windows (cached).
-
-        Right-aligned (column ``W-1`` = position −1); missing/N
-        positions hold −1, which the positional scorer maps to 0.
-        """
-        if self._up_codes is None:
-            W = W_UP_WINDOW
-            out = numpy.full((len(self.cands), W), -1, dtype=numpy.int8)
-            for i, c in enumerate(self.cands):
-                lo = max(0, c.start - W)
-                seg = self.codes[lo : c.start]
-                if len(seg):
-                    out[i, W - len(seg):] = seg
-            self._up_codes = out
-        return self._up_codes
+    __slots__ = ("codes", "strand", "start", "end", "flags", "codon", "rbs", "_up_codes")
 
     def __init__(self, seq5: str, strand: int, mask: bool) -> None:
-        self.seq5 = seq5
         self.strand = strand
         self.codes = _encode(seq5)
-        cands = _find_orfs(self.codes, strand, len(seq5))
+        start, end, flags = _find_orfs(self.codes)
+        TIMER.count("orf.candidates", len(start))
         if mask:
-            spans = _mask_spans(self.codes)
-            if spans:
-                begins = [b for b, _ in spans]
-                ends = [e for _, e in spans]
+            spans = numpy.array(_mask_spans(self.codes), dtype=numpy.int64).reshape(-1, 2)
+            if len(spans):
+                # the last masked span beginning before the candidate's end
+                i = numpy.searchsorted(spans[:, 0], end - 1, side="right") - 1
+                keep = ~((i >= 0) & (spans[numpy.maximum(i, 0), 1] > start))
+                start, end, flags = start[keep], end[keep], flags[keep]
+        self.start, self.end, self.flags = start, end, flags
+        self.codon, self.rbs = _annotate(self.codes, start, flags)
+        self._up_codes: Optional["numpy.ndarray"] = None
 
-                def overlaps(c: _Candidate) -> bool:
-                    i = bisect.bisect_right(begins, c.end - 1) - 1
-                    return i >= 0 and ends[i] > c.start
+    def __len__(self) -> int:
+        return len(self.start)
 
-                cands = [c for c in cands if not overlaps(c)]
-        for c in cands:
-            if not c.partial_begin:
-                c.codon = seq5[c.start: c.start + 3]
-            # both bounds clamped: a negative stop would wrap and scan
-            # (nearly) the whole contig for edge candidates
-            upstream = seq5[max(0, c.start - 15): max(0, c.start - 4)]
-            for b, motif in enumerate(_RBS_MOTIFS):
-                if motif in upstream:
-                    c.rbs = b
-                    break
-            c.upstream = seq5[max(0, c.start - W_UP_WINDOW): c.start]
-        self.cands = cands
-        self._up_codes = None
+    @property
+    def complete(self) -> "numpy.ndarray":
+        """True for candidates that begin at a start codon."""
+        return (self.flags & PARTIAL_BEGIN) == 0
+
+    def upstream_codes(self) -> "numpy.ndarray":
+        """:func:`_upstream_codes` of every candidate (cached)."""
+        if self._up_codes is None:
+            self._up_codes = _upstream_codes(self.codes, self.start)
+        return self._up_codes
+
+
+class _Views:
+    """Both strands' candidates in forward coordinates, the table the selection
+    runs on: the forward strand's, then the reverse strand's ``(n - end, n -
+    start)``, each in enumeration order.  The strand-local originals stay, so
+    score components can be (re)computed at any stage."""
+
+    __slots__ = ("start", "end", "strand", "flags")
+
+    def __init__(self, forward: _StrandData, reverse: _StrandData, n: int) -> None:
+        self.start = numpy.concatenate((forward.start, n - reverse.end)).astype(numpy.int32)
+        self.end = numpy.concatenate((forward.end, n - reverse.start)).astype(numpy.int32)
+        self.strand = numpy.repeat(numpy.array([1, -1], dtype=numpy.int8),
+                                   (len(forward), len(reverse)))
+        self.flags = numpy.concatenate((forward.flags, reverse.flags))
 
 
 class _Model:
@@ -310,44 +372,24 @@ class _Model:
 
     def __init__(self, log_odds, codon_lo, rbs_lo, upstream_lo=None) -> None:
         self.log_odds = log_odds
-        self.codon_lo = codon_lo      # {codon: log-odds}
+        self.codon_lo = codon_lo      # numpy, per codon class (_codon_table)
         self.rbs_lo = rbs_lo          # numpy [len(_RBS_MOTIFS)+1], last = no-RBS
         self.upstream_lo = upstream_lo
 
-    def start_bonus(self, c: _Candidate) -> float:
-        if c.partial_begin:
-            return 0.0
-        bonus = (
-            W_START * self.codon_lo.get(c.codon, -2.0)
-            + W_RBS * float(self.rbs_lo[c.rbs])
-        )
-        if self.upstream_lo is not None and c.upstream is not None:
-            lo = self.upstream_lo
-            w = lo.shape[0]
-            u = c.upstream[-w:]
-            offset = w - len(u)
-            bonus += W_UPSTREAM * float(sum(
-                lo[offset + i, _BASE[ch]] for i, ch in enumerate(u)
-                if ch in _BASE
-            ))
-        return bonus
-
     def start_bonus_batch(self, strand_data: "_StrandData") -> "numpy.ndarray":
-        """Vectorized :meth:`start_bonus` over one strand's candidates."""
-        cands = strand_data.cands
-        out = numpy.array([
-            0.0 if c.partial_begin else (
-                W_START * self.codon_lo.get(c.codon, -2.0)
-                + W_RBS * float(self.rbs_lo[c.rbs])
-            )
-            for c in cands
-        ])
-        if self.upstream_lo is not None and cands:
+        """The learned start bonus of each of one strand's candidates
+        (0 for a partial begin)."""
+        complete = strand_data.complete
+        out = numpy.where(
+            complete,
+            W_START * self.codon_lo[strand_data.codon] + W_RBS * self.rbs_lo[strand_data.rbs],
+            0.0,
+        )
+        if self.upstream_lo is not None and len(strand_data):
             codes = strand_data.upstream_codes()       # [n, W], -1 = pad/N
             lo = numpy.zeros((codes.shape[1], 5))
             lo[:, :4] = self.upstream_lo
             scores = lo[numpy.arange(codes.shape[1])[None, :], codes].sum(axis=1)
-            complete = numpy.array([not c.partial_begin for c in cands])
             out += W_UPSTREAM * scores * complete
         return out
 
@@ -356,6 +398,91 @@ class _Model:
 #: statistics to beat any preset; Prodigal's own guidance is >=100 kb
 #: of sequence for training) — shorter contigs score the preset bank
 SELF_TRAIN_MIN = 100_000
+
+
+def _start_log_odds(
+    codon_sel: "numpy.ndarray", rbs_sel: "numpy.ndarray",
+    codon_all: "numpy.ndarray", rbs_all: "numpy.ndarray",
+) -> Tuple[List[float], "numpy.ndarray"]:
+    """Start-codon log-odds (one per :data:`_STARTS`) and RBS-bin log-odds
+    (``[len(_RBS_MOTIFS) + 1]``, last = no RBS) of the selected candidates'
+    classes against all candidates', each count plus one."""
+    n_sel, n_all = len(codon_sel), len(codon_all)
+    sel_codons = numpy.bincount(codon_sel[codon_sel >= 0], minlength=_OTHER + 1)
+    all_codons = numpy.bincount(codon_all[codon_all >= 0], minlength=_OTHER + 1)
+    codon_lo = [
+        float(numpy.log((int(sel_codons[k]) + 1.0) / (n_sel + 3.0))
+              - numpy.log((int(all_codons[k]) + 1.0) / (n_all + 3.0)))
+        for k in range(len(_STARTS))
+    ]
+    # bin b counted at b + 1, no RBS (-1) at 0
+    sel_bins = numpy.bincount(rbs_sel.astype(numpy.intp) + 1, minlength=len(_RBS_MOTIFS) + 1)
+    all_bins = numpy.bincount(rbs_all.astype(numpy.intp) + 1, minlength=len(_RBS_MOTIFS) + 1)
+    rbs_lo = numpy.zeros(len(_RBS_MOTIFS) + 1)
+    for b in list(range(len(_RBS_MOTIFS))) + [-1]:
+        rbs_lo[b] = (
+            numpy.log((int(sel_bins[b + 1]) + 1.0) / (n_sel + 7.0))
+            - numpy.log((int(all_bins[b + 1]) + 1.0) / (n_all + 7.0))
+        )
+    return codon_lo, rbs_lo
+
+
+def _select_python(start: "numpy.ndarray", end: "numpy.ndarray", scores: "numpy.ndarray",
+                   floor: float, max_overlap: int) -> "numpy.ndarray":
+    """The plain twin of the native ``orfscan_select``: max-weight compatible
+    subset (bounded overlap) of the candidates scoring above ``floor``, as
+    indices in order of end."""
+    positive = numpy.flatnonzero(scores > floor)
+    order = positive[numpy.argsort(end[positive], kind="stable")]
+    if not len(order):
+        return order
+    ends = end[order].tolist()
+    starts = start[order].tolist()
+    values = scores[order].tolist()
+    best = [0.0] * (len(order) + 1)  # best[i] = best using first i, prefix max
+    take_score = [0.0] * len(order)
+    parent = [-1] * len(order)
+    for i, value in enumerate(values):
+        limit = starts[i] + max_overlap
+        j = bisect.bisect_right(ends, limit, 0, i)  # predecessors ending before limit
+        take_score[i] = best[j] + value
+        parent[i] = j
+        best[i + 1] = max(best[i], take_score[i])
+    # traceback
+    selected: List[int] = []
+    i = len(order)
+    while i > 0:
+        if best[i] == best[i - 1] and take_score[i - 1] < best[i]:
+            i -= 1
+            continue
+        if take_score[i - 1] == best[i]:
+            selected.append(i - 1)
+            i = parent[i - 1]
+        else:
+            i -= 1
+    selected.reverse()
+    return order[numpy.array(selected, dtype=numpy.intp)]
+
+
+def _phase_counts(codes: "numpy.ndarray", begins: "numpy.ndarray",
+                  ends: "numpy.ndarray") -> "numpy.ndarray":
+    """``[3, 4]`` int64 counts of each base at each codon position (the
+    offset from the span's begin, mod 3) over the spans ``[begin, end)``.
+
+    ``seen[r, b, i]`` counts the positions ``j < i`` with ``j % 3 == r``
+    holding base ``b``, so a span reads each codon position in O(1)."""
+    n = len(codes)
+    at = numpy.flatnonzero(codes >= 0)
+    marks = numpy.zeros((3, 4, n + 1), dtype=numpy.int64)
+    marks[at % 3, codes[at], at + 1] = 1
+    seen = numpy.cumsum(marks, axis=2)
+    begins = numpy.asarray(begins, dtype=numpy.int64)
+    ends = numpy.asarray(ends, dtype=numpy.int64)
+    counts = numpy.zeros((3, 4), dtype=numpy.int64)
+    for p in range(3):
+        r = (begins + p) % 3
+        counts[p] = (seen[r, :, ends] - seen[r, :, begins]).sum(axis=0)
+    return counts
 
 
 class ScanFinder(ORFFinder):
@@ -369,6 +496,9 @@ class ScanFinder(ORFFinder):
     Contigs of at least ``SELF_TRAIN_MIN`` bp train on themselves
     instead (two-pass self-training, the Prodigal single-mode scheme),
     as does ``metagenome=False`` over the joined input.
+
+    Candidates live in arrays (:class:`_StrandData`, :class:`_Views`);
+    a selection is an index array into the table it ran on.
     """
 
     def __init__(self, metagenome: bool = True, mask: bool = False, cpus: int = 0,
@@ -389,7 +519,7 @@ class ScanFinder(ORFFinder):
             self._preset_cache = [
                 (preset.name, _Model(
                     preset.log_odds,
-                    dict(zip(_STARTS, preset.codon_lo.tolist())),
+                    _codon_table(preset.codon_lo.tolist()),
                     preset.rbs_lo,
                     getattr(preset, "upstream_lo", None),
                 ), float(preset.gc))
@@ -400,28 +530,37 @@ class ScanFinder(ORFFinder):
     # -- scoring ------------------------------------------------------------
 
     @staticmethod
-    def _seed_log_odds(strands: Sequence[_StrandData]) -> "numpy.ndarray":
+    def _seeds(s: _StrandData) -> "numpy.ndarray":
+        """Indices of one strand's candidates of at least 500 nt."""
+        return numpy.flatnonzero(s.end - s.start >= 500)
+
+    @staticmethod
+    def _longest(s: _StrandData) -> "numpy.ndarray":
+        """Indices of the longest tenth (at least 3) of one strand's
+        candidates, longest first, ties in enumeration order."""
+        return numpy.argsort(s.start - s.end, kind="stable")[: max(3, len(s) // 10)]
+
+    @staticmethod
+    def _coding_spans(s: _StrandData, idx: "numpy.ndarray") -> "numpy.ndarray":
+        """``[k, 2]`` coding spans ``(start, end - 3)`` (stop excluded)."""
+        return numpy.stack((s.start[idx], s.end[idx] - 3), axis=1)
+
+    @classmethod
+    def _seed_log_odds(cls, strands: Sequence[_StrandData]) -> "numpy.ndarray":
         """Hexamer log-odds from long-ORF seeds vs whole-sequence background."""
-        seeds = {
-            s.strand: [(c.start, c.end - 3) for c in s.cands if c.end - c.start >= 500]
-            for s in strands
-        }
-        if not any(seeds.values()):
-            for s in strands:
-                seeds[s.strand] = sorted(
-                    ((c.start, c.end - 3) for c in s.cands),
-                    key=lambda span: span[0] - span[1],
-                )[: max(3, len(s.cands) // 10)]
+        seeds = {s.strand: cls._seeds(s) for s in strands}
+        if not any(len(idx) for idx in seeds.values()):
+            seeds = {s.strand: cls._longest(s) for s in strands}
         coding = numpy.zeros(4096)
         background = numpy.zeros(4096)
         for s in strands:
-            coding += _hexamer_counts(s.codes, seeds.get(s.strand, []))
+            coding += _hexamer_counts(s.codes, cls._coding_spans(s, seeds[s.strand]))
             background += _hexamer_counts(s.codes, [(0, len(s.codes))])
         log_odds = numpy.log(coding / coding.sum()) - numpy.log(background / background.sum())
         return numpy.clip(log_odds, -4.0, 4.0)
 
-    @staticmethod
-    def _positional_log_odds(strands: Sequence[_StrandData]) -> "numpy.ndarray":
+    @classmethod
+    def _positional_log_odds(cls, strands: Sequence[_StrandData]) -> "numpy.ndarray":
         """``[3, 4]`` codon-position base log-odds from long-ORF seeds.
 
         The robust counterpart of the hexamer model for contigs too
@@ -439,16 +578,11 @@ class ScanFinder(ORFFinder):
         for s in strands:
             codes = s.codes
             bg_counts += numpy.bincount(codes[codes >= 0], minlength=4)
-            seeds = [c for c in s.cands if c.end - c.start >= 500]
-            if not seeds:
-                seeds = sorted(s.cands, key=lambda c: c.start - c.end)
-                seeds = seeds[: max(3, len(s.cands) // 10)]
-            for c in seeds:
-                seg = codes[c.start: c.end - 3]
-                for p in range(3):
-                    sub = seg[p::3]
-                    sub = sub[sub >= 0]
-                    pos_counts[p] += numpy.bincount(sub, minlength=4)
+            seeds = cls._seeds(s)
+            if not len(seeds):
+                seeds = cls._longest(s)
+            # integer counts: exact whatever the order of the additions
+            pos_counts += _phase_counts(codes, s.start[seeds], s.end[seeds] - 3)
         pos_f = pos_counts / pos_counts.sum(axis=1, keepdims=True)
         bg_f = bg_counts / bg_counts.sum()
         return numpy.log(pos_f / bg_f[None, :])
@@ -470,24 +604,21 @@ class ScanFinder(ORFFinder):
         for f in range(3):
             vals = numpy.where(valid, lo[(idx - f) % 3, clamped], 0.0)
             numpy.cumsum(vals, out=cs[f, 1:])
-        out = numpy.empty(len(s.cands))
-        for i, c in enumerate(s.cands):
-            f = c.start % 3
-            out[i] = cs[f, c.end - 3] - cs[f, c.start]
-        return out
+        frame = s.start % 3
+        return cs[frame, s.end - 3] - cs[frame, s.start]
 
-    def _score_batch(self, codes, candidates: List[_Candidate], log_odds) -> "numpy.ndarray":
+    def _score_batch(self, s: _StrandData, log_odds) -> "numpy.ndarray":
         """Coding score + length prior for every candidate (native or numpy)."""
         from ._native import native_scores
 
-        if not candidates:
+        if not len(s):
             return numpy.zeros(0)
-        starts = numpy.array([c.start for c in candidates], dtype=numpy.int32)
-        ends = numpy.array([c.end - 3 for c in candidates], dtype=numpy.int32)
-        coding = native_scores(codes, log_odds, starts, ends)
+        starts = s.start
+        ends = s.end - 3
+        coding = native_scores(s.codes, log_odds, starts, ends)
         if coding is None:
             coding = numpy.array([
-                self._score_coding(codes, int(b), int(e), log_odds)
+                self._score_coding(s.codes, int(b), int(e), log_odds)
                 for b, e in zip(starts, ends)
             ])
         lengths = numpy.maximum(ends + 3 - starts, 1)
@@ -495,7 +626,7 @@ class ScanFinder(ORFFinder):
 
     @staticmethod
     def _score_coding(codes, begin: int, end: int, log_odds) -> float:
-        seg = codes[begin:end]
+        seg = codes[begin:end].astype(numpy.int64)
         if len(seg) < 6:
             return 0.0
         h = (
@@ -511,14 +642,9 @@ class ScanFinder(ORFFinder):
         return float(log_odds[h_inframe].sum())
 
     @staticmethod
-    def _static_start_bonus(candidate: _Candidate) -> float:
+    def _static_start_bonus(s: _StrandData) -> "numpy.ndarray":
         """Pass-1 start prior (bacterial consensus), before self-training."""
-        if candidate.partial_begin:
-            return -1.0
-        bonus = _START_BONUS.get(candidate.codon, -2.0)
-        if candidate.rbs >= 0:
-            bonus += _RBS_BONUS.get(len(_RBS_MOTIFS[candidate.rbs]), 1.0)
-        return bonus
+        return numpy.where(s.complete, _STATIC_CODON[s.codon] + _STATIC_RBS[s.rbs], -1.0)
 
     def _fit_model(self, strands: Sequence[_StrandData]) -> _Model:
         """Two-pass self-training: seed model -> provisional genes -> retrain.
@@ -529,22 +655,21 @@ class ScanFinder(ORFFinder):
         iterative start training, re-implemented from scratch).
         """
         log_odds = self._seed_log_odds(strands)
-        provisional: List[_Candidate] = []
-        for s in strands:
-            scores = self._score_batch(s.codes, s.cands, log_odds)
-            for c, coding in zip(s.cands, scores):
-                c.score = float(coding) + self._static_start_bonus(c)
-            provisional.extend(self._select_local(s))
-        if not provisional:
-            return _Model(log_odds, dict(_START_BONUS), numpy.zeros(len(_RBS_MOTIFS) + 1))
+        # one provisional selection per strand, in strand coordinates
+        provisional = [
+            self._select(s.start, s.end,
+                         self._score_batch(s, log_odds) + self._static_start_bonus(s))
+            for s in strands
+        ]
+        chosen = sum(len(idx) for idx in provisional)
+        if not chosen:
+            return _Model(log_odds, _STATIC_CODON.copy(), numpy.zeros(len(_RBS_MOTIFS) + 1))
 
         # retrained hexamer statistics from the provisional genes
         coding = numpy.zeros(4096)
         background = numpy.zeros(4096)
-        selected_ids = {id(c) for c in provisional}
-        for s in strands:
-            spans = [(c.start, c.end - 3) for c in s.cands if id(c) in selected_ids]
-            coding += _hexamer_counts(s.codes, spans)
+        for s, idx in zip(strands, provisional):
+            coding += _hexamer_counts(s.codes, self._coding_spans(s, idx))
             background += _hexamer_counts(s.codes, [(0, len(s.codes))])
         log_odds2 = numpy.clip(
             numpy.log(coding / coding.sum()) - numpy.log(background / background.sum()),
@@ -552,105 +677,67 @@ class ScanFinder(ORFFinder):
         )
 
         # learned start model: selected usage vs candidate background
-        all_cands = [c for s in strands for c in s.cands]
-        codon_lo = {}
-        for codon in _STARTS:
-            sel = sum(1 for c in provisional if c.codon == codon) + 1.0
-            bg = sum(1 for c in all_cands if c.codon == codon) + 1.0
-            codon_lo[codon] = float(
-                numpy.log(sel / (len(provisional) + 3.0))
-                - numpy.log(bg / (len(all_cands) + 3.0))
-            )
-        rbs_lo = numpy.zeros(len(_RBS_MOTIFS) + 1)
-        for b in list(range(len(_RBS_MOTIFS))) + [-1]:
-            sel = sum(1 for c in provisional if c.rbs == b) + 1.0
-            bg = sum(1 for c in all_cands if c.rbs == b) + 1.0
-            rbs_lo[b] = float(
-                numpy.log(sel / (len(provisional) + 7.0))
-                - numpy.log(bg / (len(all_cands) + 7.0))
-            )
-        return _Model(log_odds2, codon_lo, rbs_lo)
+        codon_lo, rbs_lo = _start_log_odds(
+            numpy.concatenate([s.codon[idx] for s, idx in zip(strands, provisional)]),
+            numpy.concatenate([s.rbs[idx] for s, idx in zip(strands, provisional)]),
+            numpy.concatenate([s.codon for s in strands]),
+            numpy.concatenate([s.rbs for s in strands]),
+        )
+        return _Model(log_odds2, _codon_table(codon_lo), rbs_lo)
 
     # -- selection ----------------------------------------------------------
 
-    def _select_local(self, s: _StrandData) -> List[_Candidate]:
-        """Select a compatible set on one strand (training passes only)."""
-        return self._select(list(s.cands))
-
     @staticmethod
-    def _select(candidates: List[_Candidate],
-                floor: Optional[float] = None) -> List[_Candidate]:
-        """Max-weight compatible subset (bounded overlap) via DP."""
+    def _select(start: "numpy.ndarray", end: "numpy.ndarray", scores: "numpy.ndarray",
+                floor: Optional[float] = None) -> "numpy.ndarray":
+        """Max-weight compatible subset (bounded overlap) via DP: indices
+        of the candidates taken, in order of end (native core when built,
+        else :func:`_select_python`)."""
+        from ._native import native_select
+
         if floor is None:
             floor = MIN_SCORE
-        positive = [c for c in candidates if c.score > floor]
-        positive.sort(key=lambda c: c.end)
-        if not positive:
-            return []
-        ends = [c.end for c in positive]
-        best = [0.0] * (len(positive) + 1)  # best[i] = best using first i, prefix max
-        take_score = [0.0] * len(positive)
-        parent = [-1] * len(positive)
-        for i, candidate in enumerate(positive):
-            limit = candidate.start + MAX_OVERLAP
-            j = bisect.bisect_right(ends, limit, 0, i)  # predecessors ending before limit
-            take_score[i] = best[j] + candidate.score
-            parent[i] = j
-            best[i + 1] = max(best[i], take_score[i])
-        # traceback
-        selected: List[_Candidate] = []
-        i = len(positive)
-        while i > 0:
-            if best[i] == best[i - 1] and take_score[i - 1] < best[i]:
-                i -= 1
-                continue
-            if take_score[i - 1] == best[i]:
-                selected.append(positive[i - 1])
-                i = parent[i - 1]
-            else:
-                i -= 1
-        selected.reverse()
-        return selected
+        chosen = native_select(start, end, scores, floor, MAX_OVERLAP)
+        if chosen is not None:
+            TIMER.count("orf.select.native")
+            return chosen
+        TIMER.count("orf.select.python")
+        return _select_python(start, end, scores, floor, MAX_OVERLAP)
 
     def _compete(
         self,
         models: Sequence[_Model],
         strands: Sequence[_StrandData],
-        merged: List[_Candidate],
-        assign: Callable[[Sequence["numpy.ndarray"]], None],
-    ) -> List[_Candidate]:
+        table: _Views,
+    ) -> "numpy.ndarray":
         """Score the contig under each model; best-total selection wins.
 
         The Prodigal meta-mode contract (``gecco/orf.py:75``):
         all models share one scoring form (hexamer log-odds + learned
         start bonuses, both log-likelihood ratios against the contig
-        background), so selected-set totals are comparable.
+        background), so selected-set totals are comparable.  Totals are
+        summed left to right in the selection's order, as Python's ``sum``.
         """
         best_total = -numpy.inf
-        winner: List[Tuple[_Candidate, float]] = []
+        winner = numpy.zeros(0, dtype=numpy.intp)
         for m in models:
-            assign([
-                self._score_batch(s.codes, s.cands, m.log_odds)
-                + m.start_bonus_batch(s)
+            scores = numpy.concatenate([
+                self._score_batch(s, m.log_odds) + m.start_bonus_batch(s)
                 for s in strands
             ])
-            chosen = self._select(merged)
-            total = sum(c.score for c in chosen)
+            chosen = self._select(table.start, table.end, scores)
+            total = sum(scores[chosen].tolist())
             if total > best_total:
                 best_total = total
-                winner = [(c, c.score) for c in chosen]
-        for candidate, value in winner:
-            candidate.score = value
-        return [c for c, _v in winner]
+                winner = chosen
+        return winner
 
     def _call_short_contig(
         self,
         seq: str,
         strands: Sequence[_StrandData],
-        views: dict,
-        merged: List[_Candidate],
-        assign: Callable[[Sequence["numpy.ndarray"]], None],
-    ) -> List[_Candidate]:
+        table: _Views,
+    ) -> "numpy.ndarray":
         """Metagenome-mode calling for one short contig.
 
         GC-compatible presets (within :data:`GC_GATE`) compete as in
@@ -670,25 +757,15 @@ class ScanFinder(ORFFinder):
                 if abs(preset_gc - gc) <= GC_GATE]
         pos_lo = self._positional_log_odds(strands)
         pos_scores = [self._positional_scores(s, pos_lo) for s in strands]
-        fallback = self._call_short_denovo(
-            seq, strands, merged, assign, pos_scores)
+        fallback = self._call_short_denovo(seq, strands, table, pos_scores)
         if not bank:
             return fallback
-        # the preset competition reassigns every view's score; snapshot
-        # the fallback winners' scores so a fallback return hands back
-        # the values it was actually selected under
-        fallback_scores = [(c, c.score) for c in fallback]
-        preset_sel = self._compete(bank, strands, merged, assign)
-        pos_of = {
-            id(view): float(value)
-            for s, values in zip(strands, pos_scores)
-            for view, value in zip(views[s.strand], values)
-        }
-        preset_total = sum(pos_of[id(c)] for c in preset_sel)
-        fallback_total = sum(pos_of[id(c)] for c in fallback)
+        preset_sel = self._compete(bank, strands, table)
+        positional = numpy.concatenate(pos_scores)
+        # left-to-right sums, as Python's ``sum`` over the selections
+        preset_total = sum(positional[preset_sel].tolist())
+        fallback_total = sum(positional[fallback].tolist())
         if fallback_total > max(preset_total, 0.0) * FIT_MARGIN:
-            for candidate, value in fallback_scores:
-                candidate.score = value
             return fallback
         return preset_sel
 
@@ -696,10 +773,9 @@ class ScanFinder(ORFFinder):
         self,
         seq: str,
         strands: Sequence[_StrandData],
-        merged: List[_Candidate],
-        assign: Callable[[Sequence["numpy.ndarray"]], None],
+        table: _Views,
         pos_scores: Optional[Sequence["numpy.ndarray"]] = None,
-    ) -> List[_Candidate]:
+    ) -> "numpy.ndarray":
         """De-novo calling for short contigs with no GC-compatible preset.
 
         Two passes, both measured on held-out BGC0001866 (the flagship
@@ -720,28 +796,28 @@ class ScanFinder(ORFFinder):
         if pos_scores is None:
             pos_lo = self._positional_log_odds(strands)
             pos_scores = [self._positional_scores(s, pos_lo) for s in strands]
-        assign(pos_scores)
-        seed = self._select(merged, floor=POS_MIN_SCORE)
-        if not seed:
-            return []
+        seed = self._select(table.start, table.end, numpy.concatenate(pos_scores),
+                            floor=POS_MIN_SCORE)
+        if not len(seed):
+            return seed
         from .presets import train_preset
 
-        genes = [(c.start + 1, c.end, c.strand) for c in seed]
+        genes = numpy.stack(
+            (table.start[seed] + 1, table.end[seed], table.strand[seed]), axis=1)
         preset = train_preset(seq, genes, name="fallback",
                               strands=tuple(strands))
         m = _Model(
             preset.log_odds,
-            dict(zip(_STARTS, preset.codon_lo.tolist())),
+            _codon_table(preset.codon_lo.tolist()),
             preset.rbs_lo,
             preset.upstream_lo,
         )
-        assign([
-            self._score_batch(s.codes, s.cands, m.log_odds)
+        refined = self._select(table.start, table.end, numpy.concatenate([
+            self._score_batch(s, m.log_odds)
             + m.start_bonus_batch(s) + pos
             for s, pos in zip(strands, pos_scores)
-        ])
-        refined = self._select(merged)
-        return refined if refined else seed
+        ]))
+        return refined if len(refined) else seed
 
     # -- public API ---------------------------------------------------------
 
@@ -768,7 +844,7 @@ class ScanFinder(ORFFinder):
             return list(self._find_in_record(record, shared))
 
         # threads pay off only for contigs whose work is dominated by
-        # the GIL-releasing native scan — the self-training (>=100 kb)
+        # the GIL-releasing native calls — the self-training (>=100 kb)
         # path.  Short contigs run the Python-heavy preset/fallback
         # path, where a thread pool CONVOYS on the GIL (measured on a
         # 68-contig metagenome, 2 cores: 1.38 s serial vs 2.5 s with 2
@@ -807,57 +883,36 @@ class ScanFinder(ORFFinder):
         forward = _StrandData(seq, 1, self.mask)
         reverse = _StrandData(reverse_complement(seq), -1, self.mask)
         strands = (forward, reverse)
-
-        # forward-coordinate selection VIEWS; the originals stay
-        # strand-local so score components can be (re)computed at any
-        # stage (the fallback path needs a second scoring pass)
-        views = {}
-        for s in strands:
-            view_list = []
-            for c in s.cands:
-                if s.strand == -1:
-                    b, e = n - c.end, n - c.start
-                else:
-                    b, e = c.start, c.end
-                view_list.append(_Candidate(
-                    b, e, s.strand,
-                    partial_begin=c.partial_begin, partial_end=c.partial_end))
-            views[s.strand] = view_list
-        merged: List[_Candidate] = views[1] + views[-1]
-
-        def assign(per_strand_scores: Sequence["numpy.ndarray"]) -> None:
-            for s, values in zip(strands, per_strand_scores):
-                for view, value in zip(views[s.strand], values):
-                    view.score = float(value)
+        table = _Views(forward, reverse, n)
 
         if model is not None:
-            selected = self._compete([model], strands, merged, assign)
+            selected = self._compete([model], strands, table)
         elif n < SELF_TRAIN_MIN:
-            selected = self._call_short_contig(
-                seq, strands, views, merged, assign)
+            selected = self._call_short_contig(seq, strands, table)
         else:
-            selected = self._compete(
-                [self._fit_model(strands)], strands, merged, assign)
-        selected.sort(key=lambda c: (c.start, c.end))
-        for i, candidate in enumerate(selected):
-            if candidate.strand == 1:
-                nucleotides = seq[candidate.start : candidate.end]
+            selected = self._compete([self._fit_model(strands)], strands, table)
+        selected = selected[numpy.lexsort((table.end[selected], table.start[selected]))]
+        for i, (start, end, strand, flags) in enumerate(zip(
+                table.start[selected].tolist(), table.end[selected].tolist(),
+                table.strand[selected].tolist(), table.flags[selected].tolist())):
+            if strand == 1:
+                nucleotides = seq[start:end]
             else:
-                nucleotides = reverse_complement(seq[candidate.start : candidate.end])
+                nucleotides = reverse_complement(seq[start:end])
             protein_seq = translate(nucleotides, table=self.translation_table)
             # Prodigal conventions, shared with the resume path
             # (_common.assign_sources): the trailing stop '*' is kept,
             # and the initiator codon renders as M for complete genes
             # (edge partials keep the literal translation)
-            if (not candidate.partial_begin and protein_seq
+            if (not flags & PARTIAL_BEGIN and protein_seq
                     and nucleotides[:3] in _STARTS):
                 protein_seq = "M" + protein_seq[1:]
             protein = Protein(id=f"{record.id}_{i+1}", seq=Seq(protein_seq))
             yield Gene(
                 source=record,
-                start=candidate.start + 1,
-                end=candidate.end,
-                strand=Strand(candidate.strand),
+                start=start + 1,
+                end=end,
+                strand=Strand(strand),
                 protein=protein,
                 qualifiers={
                     "inference": ["ab initio prediction:gecco-tpu-scan"],
