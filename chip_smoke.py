@@ -132,6 +132,7 @@ and the JAX package are blocked from import: the port and this script
 must run without them.
 """
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -148,6 +149,8 @@ sys.modules["gecco_tpu"] = None  # and of the JAX package
 
 import numpy
 import torch
+
+from gecco_tpu_torch.profiling import TIMER
 
 N_PROFILES = 2766
 GENOME_GENES = 3230
@@ -286,6 +289,23 @@ def require(condition, message):
     """Fail the run (``assert`` would vanish under ``python -O``)."""
     if not condition:
         raise RuntimeError(message)
+
+
+def launch_counts():
+    """Each kernel's launches since the timer's last reset (its counters
+    ``launch.<kernel>``); 0 for a kernel not launched."""
+    return collections.Counter({key[len("launch."):]: n for key, n in TIMER.counters.items()
+                                if key.startswith("launch.")})
+
+
+def stage_span_seconds():
+    """The seconds of each search stage span since the timer's last reset
+    (one a shard), by name."""
+    out = {}
+    for span in TIMER.export()["spans"]:
+        if span["name"] in ("filter", "viterbi", "forward", "domains"):
+            out.setdefault(span["name"], []).append((span["end_ns"] - span["start_ns"]) / 1e9)
+    return out
 
 
 class Phase:
@@ -861,7 +881,6 @@ def phase_long_domain_rows(device, report):
     versions step residue by residue, so each runs once (its time is that
     one call).  The log scales run over every residue, summed in double
     precision."""
-    from gecco_tpu_torch import _build
     from gecco_tpu_torch.hmm import stream
     from gecco_tpu_torch.hmm.bank import TorchBank
     from gecco_tpu_torch.hmm.kernels import SeqPack
@@ -925,7 +944,7 @@ def phase_long_domain_rows(device, report):
         return got, want
 
     t0 = time.perf_counter()
-    _build.reset_launches()
+    TIMER.reset()
     for s_idx, p_idx in groups:
         (traj, score), (want_traj, want_score) = held(
             "posterior_fwd", stream.posterior_fwd, stream.posterior_fwd_plain, s_idx, p_idx)
@@ -955,7 +974,7 @@ def phase_long_domain_rows(device, report):
                                 ("logn2", got[0][:, 1:], want[0][:, 1:])]
         print(f"# long domain rows: class {int(bank.class_of[p_idx[0]])} held, "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
-    launches = dict(_build.launches)
+    launches = launch_counts()
     print(f"# long domain rows: launches {json.dumps(launches)}", flush=True)
     for name in checks:
         require(launches.get(name) == calls[name],
@@ -970,18 +989,17 @@ def profiled_search(pipeline, seqs, device, path):
     accounting and requires every kernel of ``path`` to have launched and
     every hit to be well formed.  Returns the hits, the launch counts and
     the device ms per width class of each ``CLASS_KERNELS`` kernel."""
-    from gecco_tpu_torch import _build
 
     _ = pipeline.bank  # upload outside the timed search
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     with device_trace() as prof:
-        _build.reset_launches()
+        TIMER.reset()
         t0 = time.perf_counter()
         hits = pipeline.search(seqs)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-    launches = dict(_build.launches)
+    launches = launch_counts()
     by_key = device_ms(prof)
     busy = sum(by_key.values())
     per_kernel = {name: sum(ms for key, ms in by_key.items() if fn in key)
@@ -994,7 +1012,7 @@ def profiled_search(pipeline, seqs, device, path):
     print(f"# search: {seconds:.3f} s, {len(hits)} hits, "
           f"{sum(len(h.domains) for h in hits)} domains", flush=True)
     print(f"# stage_counts {json.dumps(pipeline.stage_counts)}", flush=True)
-    print(f"# stage_seconds {json.dumps(pipeline.stage_seconds)}", flush=True)
+    print(f"# stage spans (s) {json.dumps(stage_span_seconds())}", flush=True)
     print(f"# stage_cells {json.dumps(pipeline.stage_cells)}", flush=True)
     print(f"# launches {json.dumps(launches)}", flush=True)
     print(f"# domains: {pipeline.host_pairs} of {pipeline.stage_counts['F3']} candidate pairs "
@@ -1114,7 +1132,6 @@ def compare_with_plain(pipeline, profiles, head, device, **options):
 
 
 def phase_search(device, state):
-    from gecco_tpu_torch import _build
     from gecco_tpu_torch.hmm.bank import width_class
     from gecco_tpu_torch.hmm.calibrate import calibrate
     from gecco_tpu_torch.hmm.kernels import SeqPack
@@ -1128,12 +1145,12 @@ def phase_search(device, state):
           f"({sum(map(len, seqs))} residues) x {len(profiles)} profiles "
           f"in {time.perf_counter() - t0:.3f} s; gene calling on the "
           f"{_native.path()} ORF path", flush=True)
-    _build.reset_launches()
+    TIMER.reset()
     t0 = time.perf_counter()
     calibrate(profiles, device=device)
     torch.cuda.synchronize()
     calibrate_s = time.perf_counter() - t0
-    launches = dict(_build.launches)
+    launches = launch_counts()
     classes = len({width_class(gm.M) for gm in profiles})
     print(f"# calibrate (port, kernels A and H): {calibrate_s:.3f} s; launches "
           f"{json.dumps({k: v for k, v in launches.items() if v})}", flush=True)
@@ -1299,7 +1316,6 @@ def check_dense_whole_pack(pack, bank):
 def phase_msv_search(device, state):
     """``filter_stage="msv"``: kernel I in place of kernel A, then the
     default path's kernels; with and without the bias filter."""
-    from gecco_tpu_torch import _build
     from gecco_tpu_torch.hmm.kernels import SeqPack
     from gecco_tpu_torch.hmm.pipeline import SearchPipeline
 
@@ -1327,10 +1343,10 @@ def phase_msv_search(device, state):
     compare_with_plain(pipeline, profiles, seqs[:HEAD], device, filter_stage="msv")
     nobias = SearchPipeline(profiles, device=device, Z=N_PROFILES, domZ=N_PROFILES,
                             filter_stage="msv", bias_filter=False, backend="cuda")
-    _build.reset_launches()
+    TIMER.reset()
     compare_with_plain(nobias, profiles, seqs[:HEAD], device, filter_stage="msv",
                        bias_filter=False)
-    require(_build.launches["msv_filter"] > 0, "the MSV search without bias skipped kernel I")
+    require(launch_counts()["msv_filter"] > 0, "the MSV search without bias skipped kernel I")
     state.update(msv_launches=launches)
 
 
@@ -1367,7 +1383,6 @@ def phase_pair_domains(device, state):
     """``PairDomains`` (kernels J and K) over the default search's F3
     candidates against ``StreamDomains`` (kernels D-G) and plain PyTorch;
     kernels C and B over every envelope found as a residue window."""
-    from gecco_tpu_torch import _build
     from gecco_tpu_torch.hmm.domains import PairDomains
     from gecco_tpu_torch.hmm.kernels import (
         SeqPack, dense_nodes, viterbi_launches, viterbi_pairs, viterbi_pairs_plain)
@@ -1384,7 +1399,7 @@ def phase_pair_domains(device, state):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(device)
         with recorded_domain_rows(type(domains)) as rows, device_trace() as prof:
-            _build.reset_launches()
+            TIMER.reset()
             t0 = time.perf_counter()
             out = domains.define(seqs, pairs, pack)
             torch.cuda.synchronize()
@@ -1392,7 +1407,7 @@ def phase_pair_domains(device, state):
         by_key = device_ms(prof)
         per_kernel = {name: sum(ms for key, ms in by_key.items() if fn in key)
                       for name, fn in GLOBALS.items()}
-        return out, dict(_build.launches), {k: v for k, v in per_kernel.items() if v}, seconds, \
+        return out, launch_counts(), {k: v for k, v in per_kernel.items() if v}, seconds, \
             torch.cuda.max_memory_allocated(device), by_key, rows
 
     def same(got, want, what):
@@ -1884,7 +1899,6 @@ def write_training_tables(genes, directory):
 def phase_train_cli(device, state, cut_corpus):
     """8c: ``annotate``, ``predict``, ``train``, ``predict --model``, ``cv``
     and ``convert`` on the card, from phase 7's genome, bank and output."""
-    from gecco_tpu_torch import _build
     from gecco_tpu_torch.cli import main
 
     tmp = state["workdir"]
@@ -1901,10 +1915,10 @@ def phase_train_cli(device, state, cut_corpus):
 
     dev = ["--device", device.type]
     annotated = os.path.join(tmp, "annotate")
-    _build.reset_launches()
+    TIMER.reset()
     cli("annotate", ["annotate", "-g", state["genome_path"], "--hmm", state["bank_path"],
                      "-o", annotated, *dev])
-    launches = dict(_build.launches)
+    launches = launch_counts()
     print(f"# 8c annotate launches {json.dumps(launches)}", flush=True)
     for name in DEFAULT_PATH:
         require(launches[name] > 0, f"annotate did not launch kernel {name}")
@@ -2001,7 +2015,6 @@ def gate_values(pipeline, gm, x, Z, domZ):
 
 def phase_host_path(device, state):
     """9b: ``use_accelerator=False`` against the kernels on a cut of phase 3."""
-    from gecco_tpu_torch import _build
     from gecco_tpu_torch.hmm.pipeline import SearchPipeline
 
     seqs = state["seqs"][:HOST_PROTEINS]
@@ -2013,11 +2026,11 @@ def phase_host_path(device, state):
                           use_accelerator=False)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
-    before = (dict(_build.launches), torch.cuda.memory_allocated(device))
+    before = (launch_counts(), torch.cuda.memory_allocated(device))
     t0 = time.perf_counter()
     host_hits = host.search(seqs)
     seconds = time.perf_counter() - t0
-    require(dict(_build.launches) == before[0], "the host path launched a kernel")
+    require(launch_counts() == before[0], "the host path launched a kernel")
     require(torch.cuda.max_memory_allocated(device) == before[1],
             "the host path allocated device memory")
     pairs = len(seqs) * len(profiles)
@@ -2052,7 +2065,6 @@ def phase_host_path(device, state):
 
 def phase_sharded_search(device, state):
     """9c: phase 3's search over two slots of the card, and pinned to it."""
-    from gecco_tpu_torch import _build
     from gecco_tpu_torch.hmm.pipeline import SearchPipeline
     from gecco_tpu_torch.parallel import shard_sequences
 
@@ -2062,22 +2074,22 @@ def phase_sharded_search(device, state):
     for shard in shard_sequences(seqs, 2):
         pipeline = SearchPipeline(profiles, **options)
         _ = pipeline.bank
-        _build.reset_launches()
+        TIMER.reset()
         pipeline.search([seqs[i] for i in shard])
-        for name, count in _build.launches.items():
+        for name, count in launch_counts().items():
             alone[name] = alone.get(name, 0) + count
     multi = SearchPipeline(profiles, devices=[device, device], **options)
     multi.search(seqs)  # uploads each shard's bank
     torch.cuda.synchronize()
-    _build.reset_launches()
+    TIMER.reset()
     t0 = time.perf_counter()
     hits = multi.search(seqs)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = dict(_build.launches)
+    launches = launch_counts()
     print(f"# 9c sharded search (two slots of {device}): {seconds:.3f} s against phase 3's "
-          f"{state['search_s']:.3f} s; stage_devices {multi.stage_devices}; stage_seconds "
-          f"{json.dumps(multi.stage_seconds)}; launches {json.dumps(launches)}, the two shards "
+          f"{state['search_s']:.3f} s; stage_devices {multi.stage_devices}; stage spans (s) "
+          f"{json.dumps(stage_span_seconds())}; launches {json.dumps(launches)}, the two shards "
           f"alone {json.dumps(alone)}", flush=True)
     require(multi.stage_devices == 2, f"stage_devices {multi.stage_devices}")
     require(launches == alone, "the sharded search's launches differ from its shards' alone")

@@ -7,12 +7,12 @@ sources and flags and written under ``gecco_tpu_torch/_build/``, so a
 checkout builds once and a source change rebuilds.  A failed build
 raises; nothing falls back to the plain versions.
 
-Each kernel wrapper counts its launches in :data:`launches` through
-:func:`count_launch`, under a lock, so that a run can show that the main
-path went through the kernels, also when several threads launch (a
-sharded search, ``SearchPipeline(devices=...)``).  The first call of
-:func:`library` is the span ``load-kernels``, and each build counts one
-``kernel_builds`` (:data:`gecco_tpu_torch.profiling.TIMER`).
+Each kernel wrapper counts its launches as the counter
+``launch.<kernel>`` of :data:`gecco_tpu_torch.profiling.TIMER`, so that a
+run can show that the main path went through the kernels, also when
+several threads launch (a sharded search, ``SearchPipeline(devices=...)``).
+The first call of :func:`library` is the span ``load-kernels``, and each
+build counts one ``kernel_builds``.
 """
 
 import ctypes
@@ -22,12 +22,11 @@ import shutil
 import subprocess
 import tempfile
 import threading
-from typing import Dict, Optional
+from typing import Optional
 
 from .profiling import TIMER
 
-__all__ = ["library", "launches", "count_launch", "reset_launches", "check", "resource_usage",
-           "FLAGS"]
+__all__ = ["library", "check", "resource_usage", "FLAGS"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
@@ -37,13 +36,6 @@ FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
 ]
-
-#: launches of each kernel since the last :func:`reset_launches`
-launches: Dict[str, int] = {
-    "ssv_filter": 0, "viterbi_pairs": 0, "forward_pairs": 0,
-    "posterior_fwd": 0, "posterior_bwd": 0, "align_bwd": 0, "align_fwd": 0,
-    "dense_scores": 0, "msv_filter": 0, "pair_posterior": 0, "pair_align": 0,
-}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -88,21 +80,16 @@ _SIGNATURES.update({
 })
 
 _lock = threading.Lock()
-_count_lock = threading.Lock()
 _library: Optional[ctypes.CDLL] = None
 
 
-def count_launch(name: str) -> None:
-    """Add one to kernel ``name``'s launches (a read, an add and a write,
-    which threads launching side by side must not interleave)."""
-    with _count_lock:
-        launches[name] += 1
-
-
-def reset_launches() -> None:
-    with _count_lock:
-        for name in launches:
-            launches[name] = 0
+def __getattr__(name: str):
+    """``launches``: each kernel's ``launch.<kernel>`` counter, as a dict
+    (what ``benchmark/child.py`` records of a call); read only."""
+    if name == "launches":
+        return {key[len("launch."):]: n for key, n in list(TIMER.counters.items())
+                if key.startswith("launch.")}
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def _sources():

@@ -37,7 +37,7 @@ compute the same function and are what the kernels are checked against.
 
 import functools
 import math
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Optional, Sequence
 
 import numpy
 import torch
@@ -49,7 +49,7 @@ from .profile import length_model, null1_score
 
 __all__ = [
     "SeqPack", "ssv_filter", "ssv_filter_plain", "msv_filter", "msv_filter_plain", "msv_nodes",
-    "msv_tile", "pack_mask", "viterbi_pairs", "viterbi_pairs_plain", "flatten_pairs", "pair_blocks",
+    "msv_tile", "pack_mask", "residue_counts", "viterbi_pairs", "viterbi_pairs_plain", "pair_blocks",
     "pair_launches", "run_launches", "viterbi_launches", "dense_scores", "dense_scores_plain",
     "to_host",
 ]
@@ -110,6 +110,15 @@ def msv_nodes(bank: "TorchBank") -> "numpy.ndarray":
     return numpy.where(bank.class_of == 2048, 2048, lanes * -(-lengths // lanes))
 
 
+def residue_counts(sequences: Sequence["numpy.ndarray"]) -> "numpy.ndarray":
+    """``[S, 20]`` int64 counts of each sequence's residues (codes 0-19;
+    the degenerate codes from 20 up are not counted)."""
+    lens = [len(x) for x in sequences]
+    rows = numpy.repeat(numpy.arange(len(lens), dtype=numpy.int64), lens)
+    codes = numpy.concatenate([numpy.minimum(x, 20) for x in sequences] or [rows])
+    return numpy.bincount(rows * 21 + codes, minlength=21 * len(lens)).reshape(-1, 21)[:, :20]
+
+
 class SeqPack:
     """A batch of encoded sequences resident on one device.
 
@@ -131,14 +140,12 @@ class SeqPack:
         loops_log = numpy.zeros(S, dtype=numpy.float32)
         moves_log = numpy.zeros(S, dtype=numpy.float32)
         nullsc = numpy.zeros(S, dtype=numpy.float32)
-        counts = numpy.zeros((S, 20), dtype=numpy.float32)
         for i, x in enumerate(sequences):
-            x = numpy.minimum(numpy.asarray(x), 20)
             L = len(x)
-            flat[offsets[i] : offsets[i] + L] = x
+            flat[offsets[i] : offsets[i] + L] = numpy.minimum(x, 20)
             loops_log[i], moves_log[i] = length_model(L)
             nullsc[i] = null1_score(L)
-            counts[i] = numpy.bincount(x, minlength=21)[:20]
+        counts = residue_counts(sequences).astype(numpy.float32)
         self.lens_host = lens
         self.counts_host = counts
 
@@ -243,7 +250,7 @@ def _launch_filter(fn_name: str, counter: str, pack: SeqPack, bank: TorchBank,
                 out.data_ptr(), stream,
             )
             _build.check(code, fn_name)
-            _build.count_launch(counter)
+            TIMER.count(f"launch.{counter}")
     return out
 
 
@@ -376,17 +383,6 @@ def pack_mask(scores: torch.Tensor, pack: SeqPack, bank: TorchBank,
 # pair lists (F2 / F3)
 # ---------------------------------------------------------------------------
 
-def flatten_pairs(survivors: Dict[int, List[int]]) -> Tuple["numpy.ndarray", "numpy.ndarray"]:
-    """``(sequence, profile)`` index arrays of a survivor dict, in key order."""
-    keys = sorted(survivors)
-    if not keys:
-        z = numpy.zeros(0, dtype=numpy.int64)
-        return z, z.copy()
-    s = numpy.concatenate([numpy.full(len(survivors[i]), i, numpy.int64) for i in keys])
-    p = numpy.concatenate([numpy.asarray(survivors[i], numpy.int64) for i in keys])
-    return s, p
-
-
 def launch_rows(fn_name: str, counter: str, pack: SeqPack, bank: TorchBank,
                 seq: torch.Tensor, prof: torch.Tensor, width: int, *tail: torch.Tensor,
                 log_space: bool, stride=None) -> None:
@@ -422,7 +418,7 @@ def launch_rows(fn_name: str, counter: str, pack: SeqPack, bank: TorchBank,
             *[t.data_ptr() if isinstance(t, torch.Tensor) else t for t in tail], stream,
         )
     _build.check(code, fn_name)
-    _build.count_launch(counter)
+    TIMER.count(f"launch.{counter}")
 
 
 def check_ranges(pack: SeqPack, seq_idx, ranges):
@@ -749,7 +745,7 @@ def dense_scores(pack: SeqPack, bank: TorchBank, *, viterbi: bool = False) -> to
                 int(viterbi), DENSE_TILE, out.data_ptr(), stream,
             )
             _build.check(code, "gecco_dense_scores")
-            _build.count_launch("dense_scores")
+            TIMER.count("launch.dense_scores")
     return out
 
 

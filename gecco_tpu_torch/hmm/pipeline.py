@@ -43,12 +43,11 @@ is ``"cuda"`` on a card and ``"torch"`` on the CPU.  ``devices=``
 (``"all"``, a list of devices, or None) shards the sequences over
 devices, one sub-pipeline and one thread each (a list may name one card
 twice); a one-device list pins the search to that device.
-``stage_counts``, ``stage_seconds`` and ``stage_cells`` record the
-survivor funnel, wall seconds (the spans ``filter``, ``viterbi``,
-``forward`` and ``domains`` of :data:`~gecco_tpu_torch.profiling.TIMER`)
-and DP cells of the last :meth:`SearchPipeline.search`; over shards,
-counts and cells are summed, seconds are the slowest shard's and
-``stage_devices`` counts the shards that ran.
+``stage_counts`` and ``stage_cells`` record the survivor funnel and DP
+cells of the last :meth:`SearchPipeline.search`, summed over shards, and
+``stage_devices`` counts the shards that ran; the spans ``filter``,
+``viterbi``, ``forward`` and ``domains`` of
+:data:`~gecco_tpu_torch.profiling.TIMER` time its stages, once a shard.
 """
 
 import math
@@ -65,8 +64,8 @@ from . import engine
 from .bank import ProfileBank, TorchBank, bias_logratio
 from .engine import DomainHit, exp_surv
 from .kernels import (
-    SeqPack, dense_scores, dense_scores_plain, flatten_pairs, msv_filter, msv_filter_plain,
-    pack_mask, ssv_filter, ssv_filter_plain, to_host, viterbi_pairs, viterbi_pairs_plain,
+    SeqPack, dense_scores, dense_scores_plain, msv_filter, msv_filter_plain, pack_mask,
+    residue_counts, ssv_filter, ssv_filter_plain, to_host, viterbi_pairs, viterbi_pairs_plain,
 )
 from .profile import SearchProfile, null1_score
 from .stream import StreamDomains, forward_pairs, forward_pairs_plain
@@ -166,7 +165,6 @@ class SearchPipeline:
         #: None, "all" or a list of devices to shard the sequences over
         self.devices = devices
         self.stage_counts: Dict[str, int] = {}
-        self.stage_seconds: Dict[str, float] = {}
         self.stage_cells: Dict[str, float] = {}
         #: shards of the last search that ran (1 without ``devices``)
         self.stage_devices = 1
@@ -225,7 +223,6 @@ class SearchPipeline:
 
     def _reset(self) -> None:
         self.stage_counts = {}
-        self.stage_seconds = {}
         self.stage_cells = {}
         self.stage_devices = 1
         self.domain_counts = dict.fromkeys(StreamDomains.COUNTS, 0)
@@ -322,9 +319,6 @@ class SearchPipeline:
         for idx, sub in ran:
             for key, value in sub.stage_counts.items():
                 self.stage_counts[key] = self.stage_counts.get(key, 0) + value
-            for key, value in sub.stage_seconds.items():
-                # the shards run side by side: a stage lasts its slowest shard
-                self.stage_seconds[key] = max(self.stage_seconds.get(key, 0.0), value)
             for key, value in sub.stage_cells.items():
                 self.stage_cells[key] = self.stage_cells.get(key, 0.0) + value
             for key, value in sub.domain_counts.items():
@@ -376,7 +370,7 @@ class SearchPipeline:
                 vals, s_arr, p_arr, extras = scored
 
         # ---- stage 3: F3 / E / bit-cutoff gates, domain definition, reporting
-        with TIMER.span("domains") as span:
+        with TIMER.span("domains"):
             if s_arr is None:
                 # the dense [S, P] scores of max_filter: gate every pair at once
                 bits = (vals - nullsc[:, None]) / LOG2
@@ -437,7 +431,6 @@ class SearchPipeline:
                     domains=reported,
                 ))
             self.stage_counts["reported"] = len(hits)
-        self.stage_seconds["domains"] = span.seconds
         self.stage_cells["domains"] = float(sum(
             lengths[i] * model_lengths[p] for i, p, _, _ in candidates
         ))
@@ -453,26 +446,29 @@ class SearchPipeline:
         pairs = S * P
         cells = float(lengths.sum()) * model_lengths.sum()
         self.stage_counts = {"pairs": pairs, "F1": pairs, "F2": pairs}
-        self.stage_seconds.update(filter=0.0, viterbi=0.0)
         self.stage_cells.update(filter=0.0, viterbi=cells, forward=cells)
-        with TIMER.span("forward") as span:
+        with TIMER.span("forward"):
             s_arr = numpy.repeat(numpy.arange(S, dtype=numpy.int64), P)
             p_arr = numpy.tile(numpy.arange(P, dtype=numpy.int64), S)
             self.rescored_pairs = (s_arr, p_arr)
             vals = numpy.array([engine.forward(self.profiles[p], sequences[i]).score
                                 for i, p in zip(s_arr, p_arr)], dtype=numpy.float64)
-            extras = numpy.zeros(pairs)
-            if self.bias_filter and not self.max_filter:
-                # the null of the F3 gate, from residue counts (there is no pack)
-                if self._logratio is None:
-                    self._logratio = bias_logratio(self._bank).astype(numpy.float64)
-                counts = numpy.zeros((S, 20), dtype=numpy.float64)
-                for i, x in enumerate(sequences):
-                    counts[i] = numpy.bincount(numpy.minimum(x, 20), minlength=21)[:20]
-                delta = (counts @ self._logratio)[s_arr, p_arr]
-                extras = numpy.maximum(numpy.logaddexp(0.0, delta) - LOG2, 0.0) / LOG2
-        self.stage_seconds["forward"] = span.seconds
+            extras = self._bias_null(residue_counts(sequences), s_arr, p_arr) / LOG2
         return vals, s_arr, p_arr, extras
+
+    def _bias_null(self, counts, s_arr, p_arr):
+        """The composition-bias null of the F2 and F3 gates, as hmmsearch:
+        ``filtersc - nullsc`` (nats) of each pair ``(s_arr, p_arr)`` from the
+        ``[S, 20]`` residue ``counts``, in float64, clipped at >= 0; 0
+        without the bias filter or with ``max_filter``.  Reported scores and
+        E-values stay null1-based."""
+        if not self.bias_filter or self.max_filter:
+            return numpy.zeros(len(s_arr))
+        if self._logratio is None:
+            self._logratio = bias_logratio(self._bank).astype(numpy.float64)
+        delta = numpy.einsum(
+            "sk,ks->s", counts[s_arr].astype(numpy.float64), self._logratio[:, p_arr])
+        return numpy.maximum(numpy.logaddexp(0.0, delta) - LOG2, 0.0)
 
     def _rescore_host(self, sequences, candidates, extras, nullsc, Z):
         """The float64 rescore and re-gate of each candidate of the host
@@ -508,12 +504,10 @@ class SearchPipeline:
         Forward-scores all of them.  Returns the ``[S, P]`` scores."""
         pairs = len(lengths) * len(self.profiles)
         self.stage_counts = {"pairs": pairs, "F1": pairs, "F2": pairs}
-        self.stage_seconds.update(filter=0.0, viterbi=0.0)
         self.stage_cells.update(filter=0.0, viterbi=0.0)
         self.stage_cells["forward"] = float(lengths.sum() * model_lengths.sum())
-        with TIMER.span("forward") as span:
+        with TIMER.span("forward"):
             vals = to_host(_SCORERS[backend]["dense"](pack, bank)).astype(numpy.float64)
-        self.stage_seconds["forward"] = span.seconds
         return vals, None, None, None
 
     def _score_filtered(self, pack, bank, backend, lengths, nullsc, model_lengths):
@@ -524,73 +518,34 @@ class SearchPipeline:
         scorers = _SCORERS[backend]
         host = self._bank
 
-        # composition bias filter null of the F1/F2/F3 gates, like
-        # hmmsearch; reported scores and E-values stay null1-based
-        counts = extra_mx = None
-        if self.bias_filter:
-            with TIMER.span("bias-null"):
-                if self._logratio is None:
-                    self._logratio = bias_logratio(host).astype(numpy.float64)
-                counts = pack.counts_host.astype(numpy.float64)
-                if pack.S * host.P <= 64_000_000:
-                    extra_mx = numpy.maximum(numpy.logaddexp(
-                        0.0, counts @ self._logratio) - LOG2, 0.0)
-
-        def filter_extra(s_arr, p_arr):
-            """``filtersc - nullsc`` (nats) per pair, clipped at >= 0; 0
-            without the bias filter."""
-            if not self.bias_filter:
-                return numpy.zeros(len(s_arr))
-            if extra_mx is not None:
-                return extra_mx[s_arr, p_arr]
-            delta = numpy.einsum(
-                "sk,ks->s", counts[s_arr], self._logratio[:, p_arr])
-            return numpy.maximum(numpy.logaddexp(0.0, delta) - LOG2, 0.0)
-
-        def pair_cells(surv: Dict[int, List[int]]) -> float:
-            return float(sum(
-                lengths[i] * model_lengths[profs].sum() for i, profs in surv.items()
-            ))
-
-        # ---- stage 1: SSV or MSV filter of all pairs
-        with TIMER.span("filter") as span:
+        # ---- stage 1: SSV or MSV filter of all pairs; its survivors as
+        # (sequence, profile) index arrays, in row-major order
+        with TIMER.span("filter"):
             scores = scorers[self.filter_stage](pack, bank)
             keep = pack_mask(scores, pack, bank, self.F1, bias=self.bias_filter)
-            surviving: Dict[int, List[int]] = {}
-            for i in range(pack.S):
-                kept = numpy.nonzero(keep[i])[0].tolist()
-                if kept:
-                    surviving[i] = kept
-        self.stage_seconds["filter"] = span.seconds
+            s_arr, p_arr = numpy.nonzero(keep)
+        self.stage_counts = {"pairs": pack.S * len(self.profiles), "F1": len(s_arr)}
         self.stage_cells["filter"] = float(lengths.sum()) * model_lengths.sum()
 
-        # ---- stage 1.5: Viterbi F2 gate on the filter survivors
-        self.stage_counts = {
-            "pairs": pack.S * len(self.profiles),
-            "F1": sum(len(v) for v in surviving.values()),
-        }
-        with TIMER.span("viterbi") as span:
-            self.stage_cells["viterbi"] = pair_cells(surviving)
-            if surviving:
-                s_arr, p_arr = flatten_pairs(surviving)
+        # ---- stage 1.5: Viterbi F2 gate on the filter survivors, against
+        # the bias null of each (kept for the F3 gate of the F2 survivors)
+        with TIMER.span("viterbi"):
+            self.stage_cells["viterbi"] = float((lengths[s_arr] * model_lengths[p_arr]).sum())
+            if len(s_arr):
                 v_arr = to_host(scorers["viterbi"](pack, bank, s_arr, p_arr))
+                extras = self._bias_null(pack.counts_host, s_arr, p_arr) / LOG2
                 bits = (v_arr.astype(numpy.float64) - nullsc[s_arr]) / LOG2
-                bits -= filter_extra(s_arr, p_arr) / LOG2
+                bits -= extras
                 pv = _gumbel_surv_vec(host.vit_lambda[p_arr] * (bits - host.vit_mu[p_arr]))
                 keep2 = pv <= self.F2
-                surviving = {}
-                for s, p in zip(s_arr[keep2], p_arr[keep2]):
-                    surviving.setdefault(int(s), []).append(int(p))
-        self.stage_seconds["viterbi"] = span.seconds
+                s_arr, p_arr, extras = s_arr[keep2], p_arr[keep2], extras[keep2]
 
         # ---- stage 2: Forward rescore of the F2 survivors
-        self.stage_counts["F2"] = sum(len(v) for v in surviving.values())
-        self.stage_cells["forward"] = pair_cells(surviving)
-        if not surviving:
+        self.stage_counts["F2"] = len(s_arr)
+        self.stage_cells["forward"] = float((lengths[s_arr] * model_lengths[p_arr]).sum())
+        if not len(s_arr):
             return None
-        with TIMER.span("forward") as span:
-            s_arr, p_arr = flatten_pairs(surviving)
+        with TIMER.span("forward"):
             self.rescored_pairs = (s_arr, p_arr)
             vals = to_host(scorers["forward"](pack, bank, s_arr, p_arr)).astype(numpy.float64)
-        self.stage_seconds["forward"] = span.seconds
-        return vals, s_arr, p_arr, filter_extra(s_arr, p_arr) / LOG2
+        return vals, s_arr, p_arr, extras

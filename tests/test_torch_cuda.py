@@ -14,7 +14,6 @@ import numpy
 import pytest
 import torch
 
-from gecco_tpu_torch import _build
 from gecco_tpu_torch.hmm.bank import NEG, TorchBank
 from gecco_tpu_torch.hmm.domains import (
     _SMEM_CAP, PairDomains, pair_align, pair_align_plain, pair_posterior, pair_posterior_plain,
@@ -30,8 +29,17 @@ from gecco_tpu_torch.hmm.stream import (
     _MAX_LPS, ALIGN_FWD_BLOCK_ROWS, DOMAIN_BLOCK_ROWS, FORWARD_BLOCK_ROWS, StreamDomains,
     align_bwd, align_bwd_plain, align_fwd, align_fwd_plain, envelopes, forward_pairs,
     forward_pairs_plain, posterior_bwd, posterior_bwd_plain, posterior_fwd, posterior_fwd_plain)
+from gecco_tpu_torch.profiling import TIMER
 
 pytestmark = pytest.mark.cuda
+
+
+def _launches(kernel=None):
+    """Launches since ``TIMER.reset()`` (its ``launch.<kernel>`` counters):
+    of ``kernel``, or of each kernel launched."""
+    counts = {key[len("launch."):]: n for key, n in TIMER.counters.items()
+              if key.startswith("launch.")}
+    return counts if kernel is None else counts.get(kernel, 0)
 
 
 @pytest.fixture(scope="module")
@@ -60,10 +68,10 @@ def workload(device):
 
 def test_ssv_kernel_matches_plain(workload):
     _profiles, _seqs, pack, bank = workload
-    before = _build.launches["ssv_filter"]
+    TIMER.reset()
     got = ssv_filter(pack, bank)
     torch.cuda.synchronize()
-    assert _build.launches["ssv_filter"] > before
+    assert _launches("ssv_filter") > 0
     torch.testing.assert_close(got, ssv_filter_plain(pack, bank), atol=1e-4, rtol=0)
 
 
@@ -87,10 +95,10 @@ def test_ssv_kernel_full_width_and_near_cap(device, lengths):
 def test_msv_kernel_matches_plain(workload):
     """Kernel I on every width class of the bank (128 to 4,096 nodes)."""
     _profiles, _seqs, pack, bank = workload
-    before = _build.launches["msv_filter"]
+    TIMER.reset()
     got = msv_filter(pack, bank)
     torch.cuda.synchronize()
-    assert _build.launches["msv_filter"] == before + len(bank.classes)
+    assert _launches("msv_filter") == len(bank.classes)
     torch.testing.assert_close(got, msv_filter_plain(pack, bank), atol=1e-4, rtol=0)
     assert (got >= ssv_filter(pack, bank) - 1e-4).all()
 
@@ -134,10 +142,10 @@ def test_ssv_kernel_edges(edge_workload):
     """Kernel A against its plain version on the edge bank: every class,
     one launch a class; the largest difference is printed (0.0 expected)."""
     _profiles, _seqs, pack, bank = edge_workload
-    before = _build.launches["ssv_filter"]
+    TIMER.reset()
     got = ssv_filter(pack, bank)
     torch.cuda.synchronize()
-    assert _build.launches["ssv_filter"] == before + len(bank.classes)
+    assert _launches("ssv_filter") == len(bank.classes)
     want = ssv_filter_plain(pack, bank)
     err = float((got - want).abs().max())
     print(f"kernel A on the edge bank: largest difference {err!r} nats")
@@ -180,10 +188,10 @@ def test_viterbi_kernel_edges(edge_workload, windows):
         end[::5] = start[::5]                       # empty windows
         start[1::5], end[1::5] = 0, lens[1::5]      # [0, L) windows
         ranges = numpy.stack([start, end], 1)
-    before = _build.launches["viterbi_pairs"]
+    TIMER.reset()
     got = viterbi_pairs(pack, bank, s_idx, p_idx, ranges=ranges)
     torch.cuda.synchronize()
-    assert _build.launches["viterbi_pairs"] == before + len(bank.classes)
+    assert _launches("viterbi_pairs") == len(bank.classes)
     want = viterbi_pairs_plain(pack, bank, s_idx, p_idx, ranges=ranges)
     finite = torch.isfinite(want)
     assert torch.equal(torch.isfinite(got), finite)
@@ -236,10 +244,10 @@ def test_msv_kernel_edges(edge_workload, node_workload, bank_of):
     32 k - 1, 32 k and 32 k + 1 nodes, one sequence past the largest tile).
     The largest difference is printed (0.0 expected)."""
     _profiles, _seqs, pack, bank = edge_workload if bank_of == "edge" else node_workload
-    before = _build.launches["msv_filter"]
+    TIMER.reset()
     got = msv_filter(pack, bank)
     torch.cuda.synchronize()
-    assert _build.launches["msv_filter"] == before + len(bank.classes)
+    assert _launches("msv_filter") == len(bank.classes)
     want = msv_filter_plain(pack, bank)
     err = float((got - want).abs().max())
     print(f"kernel I on the {bank_of} bank, {pack.S} sequences: largest difference {err!r} nats, "
@@ -275,10 +283,10 @@ def test_forward_kernel_edges(node_workload, device, windows):
         end[::5] = start[::5]                       # empty windows
         start[1::5], end[1::5] = 0, lens[1::5]      # [0, L) windows
         ranges = numpy.stack([start, end], 1)
-    before = _build.launches["forward_pairs"]
+    TIMER.reset()
     got = forward_pairs(pack, bank, s_idx, p_idx, ranges=ranges)
     torch.cuda.synchronize()
-    assert _build.launches["forward_pairs"] == before + len(bank.classes)
+    assert _launches("forward_pairs") == len(bank.classes)
     want = forward_pairs_plain(pack, bank, s_idx, p_idx, ranges=ranges)
     finite = torch.isfinite(want)
     assert torch.equal(torch.isfinite(got), finite)
@@ -339,10 +347,10 @@ def test_posterior_fwd_kernel_edges(domain_edge_rows):
     pack, bank, groups = domain_edge_rows
     errs = [0.0, 0.0]
     for s_idx, p_idx in groups:
-        before = _build.launches["posterior_fwd"]
+        TIMER.reset()
         traj, score = posterior_fwd(pack, bank, s_idx, p_idx)
         torch.cuda.synchronize()
-        assert _build.launches["posterior_fwd"] == before + 1
+        assert _launches("posterior_fwd") == 1
         want_traj, want_score = posterior_fwd_plain(pack, bank, s_idx, p_idx)
         _close(traj[:4], want_traj[:4], 1e-4)
         _close(traj[4], want_traj[4], 1e-3)
@@ -369,10 +377,10 @@ def test_align_bwd_kernel_edges(domain_edge_rows):
     errs = [0.0, 0.0]
     lengths = bank.lengths.cpu().numpy()
     for s_idx, p_idx in groups:
-        before = _build.launches["align_bwd"]
+        TIMER.reset()
         planes, logs = align_bwd(pack, bank, s_idx, p_idx)
         torch.cuda.synchronize()
-        assert _build.launches["align_bwd"] == before + 1
+        assert _launches("align_bwd") == 1
         want_planes, want_logs = align_bwd_plain(pack, bank, s_idx, p_idx)
         _close(planes, want_planes, 1e-30, rtol=2.0 ** -7)
         _close(logs, want_logs, 1e-3)
@@ -399,10 +407,10 @@ def test_posterior_bwd_kernel_edges(domain_edge_rows):
     err = 0.0
     for s_idx, p_idx in groups:
         traj, score = posterior_fwd_plain(pack, bank, s_idx, p_idx)
-        before = _build.launches["posterior_bwd"]
+        TIMER.reset()
         post = posterior_bwd(pack, bank, s_idx, p_idx, traj, score)
         torch.cuda.synchronize()
-        assert _build.launches["posterior_bwd"] == before + 1
+        assert _launches("posterior_bwd") == 1
         want = posterior_bwd_plain(pack, bank, s_idx, p_idx, traj, score)
         _close(post, want, 1e-4)
         err = max(err, float((post - want).abs().max()))
@@ -435,10 +443,10 @@ def test_align_fwd_kernel_edges(domain_edge_rows):
         jv[kind == 3] = iv[kind == 3]
         _traj, score = posterior_fwd_plain(pack, bank, s_idx, p_idx)
         planes, logs = align_bwd_plain(pack, bank, s_idx, p_idx)
-        before = _build.launches["align_fwd"]
+        TIMER.reset()
         out, coords = align_fwd(pack, bank, s_idx, p_idx, planes, logs, iv, jv, score)
         torch.cuda.synchronize()
-        assert _build.launches["align_fwd"] == before + 1
+        assert _launches("align_fwd") == 1
         want_out, want_coords = align_fwd_plain(pack, bank, s_idx, p_idx, planes, logs, iv, jv,
                                                 score)
         _close(out, want_out, 1e-3)
@@ -562,10 +570,10 @@ def test_pair_kernels_match_plain(workload, kernel, plain, tol):
 def test_dense_kernel_matches_plain(workload, viterbi, tol):
     """Kernel H on every width class of the bank (128 to 4,096 nodes)."""
     _profiles, _seqs, pack, bank = workload
-    before = _build.launches["dense_scores"]
+    TIMER.reset()
     got = dense_scores(pack, bank, viterbi=viterbi)
     torch.cuda.synchronize()
-    assert _build.launches["dense_scores"] == before + len(bank.classes)
+    assert _launches("dense_scores") == len(bank.classes)
     want = dense_scores_plain(pack, bank, viterbi=viterbi)
     assert torch.isneginf(want[-1]).all()       # the empty sequence
     torch.testing.assert_close(got, want, atol=tol, rtol=0)
@@ -587,10 +595,10 @@ def test_dense_kernel_edges(edge_workload, device, viterbi, tol, pack_of):
     else:
         chosen = [seqs[i % len(seqs)] for i in range(DENSE_TILE + 1)]
     pack = SeqPack(chosen, device)
-    before = _build.launches["dense_scores"]
+    TIMER.reset()
     got = dense_scores(pack, bank, viterbi=viterbi)
     torch.cuda.synchronize()
-    assert _build.launches["dense_scores"] == before + len(bank.classes)
+    assert _launches("dense_scores") == len(bank.classes)
     want = dense_scores_plain(pack, bank, viterbi=viterbi)
     finite = torch.isfinite(want)
     assert torch.equal(torch.isfinite(got), finite)
@@ -621,18 +629,18 @@ def test_sharded_search_on_one_card_matches_single(workload, device):
     single = SearchPipeline(profiles, device=device, backend="cuda")
     expected = single.search(seqs)
     shards = shard_sequences(seqs, 2)
-    _build.reset_launches()
+    TIMER.reset()
     for shard in shards:
         alone = SearchPipeline(profiles, device=device, backend="cuda", Z=len(seqs))
         alone.search([seqs[i] for i in shard])
     torch.cuda.synchronize()
-    separate = dict(_build.launches)
+    separate = _launches()
     multi = SearchPipeline(profiles, device=device, backend="cuda",
                            devices=[device, device])
-    _build.reset_launches()
+    TIMER.reset()
     hits = multi.search(seqs)
     torch.cuda.synchronize()
-    assert dict(_build.launches) == separate and separate["ssv_filter"] > 0
+    assert _launches() == separate and separate["ssv_filter"] > 0
     assert multi.stage_devices == 2 and multi.stage_counts == single.stage_counts
     assert [(h.sequence_index, h.profile.name) for h in hits] == [
         (h.sequence_index, h.profile.name) for h in expected]
@@ -643,9 +651,10 @@ def test_sharded_search_on_one_card_matches_single(workload, device):
 def test_host_path_launches_nothing(workload, device):
     profiles, seqs, _pack, _bank = workload
     pipeline = SearchPipeline(profiles, device=device, use_accelerator=False)
-    before = (dict(_build.launches), torch.cuda.memory_allocated(device))
+    TIMER.reset()
+    before = torch.cuda.memory_allocated(device)
     hits = pipeline.search(seqs[:3])
-    assert (dict(_build.launches), torch.cuda.memory_allocated(device)) == before
+    assert (_launches(), torch.cuda.memory_allocated(device)) == ({}, before)
     assert pipeline._torch_bank is None
     assert all(numpy.isfinite(h.score) for h in hits)
 
@@ -657,13 +666,13 @@ def test_calibrate_launches_kernels_a_and_h(device):
 
     mine = synthetic_profiles(6, min_length=30, max_length=600, seed=4)
     plain = synthetic_profiles(6, min_length=30, max_length=600, seed=4)
-    _build.reset_launches()
+    TIMER.reset()
     calibrate(mine, device=device, n=64, L=96)
     torch.cuda.synchronize()
     classes = len(TorchBank.build(mine, device).classes)
-    assert _build.launches["ssv_filter"] == classes
-    assert _build.launches["dense_scores"] == 2 * classes
-    assert _build.launches["viterbi_pairs"] == _build.launches["forward_pairs"] == 0
+    assert _launches("ssv_filter") == classes
+    assert _launches("dense_scores") == 2 * classes
+    assert _launches("viterbi_pairs") == _launches("forward_pairs") == 0
     calibrate(plain, device=device, n=64, L=96, backend="torch")
     for a, b in zip(mine, plain):
         for key in ("MSV", "VITERBI", "FORWARD"):
@@ -675,9 +684,9 @@ def test_search_msv_cuda_matches_torch(workload, device, bias_filter):
     profiles, seqs, _pack, _bank = workload
     a, b = (SearchPipeline(profiles, device=device, backend=backend, filter_stage="msv",
                            bias_filter=bias_filter) for backend in ("cuda", "torch"))
-    before = _build.launches["msv_filter"]
+    TIMER.reset()
     hits_a, hits_b = a.search(seqs), b.search(seqs)
-    assert _build.launches["msv_filter"] > before
+    assert _launches("msv_filter") > 0
     assert a.stage_counts == b.stage_counts
     assert [(h.sequence_index, h.profile.name) for h in hits_a] == [
         (h.sequence_index, h.profile.name) for h in hits_b]
@@ -700,7 +709,7 @@ def _close(got, want, atol, rtol=0.0):
 
 def test_posterior_kernels_match_plain(workload, domain_rows):
     _profiles, _seqs, pack, bank = workload
-    before = (_build.launches["posterior_fwd"], _build.launches["posterior_bwd"])
+    TIMER.reset()
     for s_idx, p_idx in domain_rows:
         traj, score = posterior_fwd(pack, bank, s_idx, p_idx)
         want_traj, want_score = posterior_fwd_plain(pack, bank, s_idx, p_idx)
@@ -709,8 +718,8 @@ def test_posterior_kernels_match_plain(workload, domain_rows):
         _close(score, want_score, 1e-3)
         post = posterior_bwd(pack, bank, s_idx, p_idx, want_traj, want_score)
         _close(post, posterior_bwd_plain(pack, bank, s_idx, p_idx, want_traj, want_score), 1e-4)
-    assert (_build.launches["posterior_fwd"], _build.launches["posterior_bwd"]) == (
-        before[0] + len(domain_rows), before[1] + len(domain_rows))
+    assert (_launches("posterior_fwd"), _launches("posterior_bwd")) == (
+        len(domain_rows), len(domain_rows))
 
 
 def test_align_kernels_match_plain(workload, domain_rows):
@@ -797,7 +806,7 @@ def test_windowed_pair_kernels_match_plain(workload, kernel, plain, tol):
 def test_pair_posterior_kernel_matches_plain(workload, domain_rows, emit_pe):
     """Kernel J on every width class (128 to 4,096 nodes), one launch a class."""
     _profiles, _seqs, pack, bank = workload
-    before = _build.launches["pair_posterior"]
+    TIMER.reset()
     for s_idx, p_idx in domain_rows:
         got = pair_posterior(pack, bank, s_idx, p_idx, emit_pe=emit_pe)
         want = pair_posterior_plain(pack, bank, s_idx, p_idx, emit_pe=emit_pe)
@@ -808,14 +817,14 @@ def test_pair_posterior_kernel_matches_plain(workload, domain_rows, emit_pe):
             _close(got[3], want[3], 1e-4)
         else:
             assert got[3] is None and want[3] is None
-    assert _build.launches["pair_posterior"] == before + len(domain_rows)
+    assert _launches("pair_posterior") == len(domain_rows)
 
 
 def test_pair_align_kernel_matches_plain(workload, domain_rows):
     """Kernel K on every width class: one envelope per row (the first slot
     found, else the whole sequence)."""
     _profiles, _seqs, pack, bank = workload
-    before = _build.launches["pair_align"]
+    TIMER.reset()
     for s_idx, p_idx in domain_rows:
         score, mocc, pb, _pe = pair_posterior_plain(pack, bank, s_idx, p_idx, emit_pe=False)
         lens = pack.lens[torch.as_tensor(s_idx, device=pack.device)]
@@ -834,7 +843,7 @@ def test_pair_align_kernel_matches_plain(workload, domain_rows):
         want_out, want_coords = pair_align_plain(pack, bank, s_idx, p_idx, iv, jv, score)
         _close(out, want_out, 1e-3)
         torch.testing.assert_close(coords, want_coords, atol=0, rtol=0)
-    assert _build.launches["pair_align"] == before + len(domain_rows)
+    assert _launches("pair_align") == len(domain_rows)
 
 
 def _edge_envelopes(pack, s_idx, seed):
@@ -888,9 +897,9 @@ def test_pair_posterior_kernel_edges(domain_edge_rows):
     errs = [0.0, 0.0]
     for s_idx, p_idx in groups:
         s_idx, p_idx = _pair_posterior_rows(pack, bank, s_idx, p_idx)
-        before = _build.launches["pair_posterior"]
+        TIMER.reset()
         errs = [max(a, b) for a, b in zip(errs, _check_pair_posterior(pack, bank, s_idx, p_idx))]
-        assert _build.launches["pair_posterior"] == before + 1
+        assert _launches("pair_posterior") == 1
     print(f"kernel J on the node bank ({len(groups)} classes): largest difference "
           f"{errs[0]!r} nats (score), {errs[1]!r} (mocc, pB, pE)")
 
@@ -921,10 +930,10 @@ def test_pair_align_kernel_edges(domain_edge_rows):
     errs = [0.0, 0.0]
     for s_idx, p_idx in groups:
         keep = pack.lens_host[s_idx] > 0
-        before = _build.launches["pair_align"]
+        TIMER.reset()
         errs = [max(a, b) for a, b in zip(errs, _check_pair_align(
             pack, bank, s_idx[keep], p_idx[keep], 13))]
-        assert _build.launches["pair_align"] == before + 1
+        assert _launches("pair_align") == 1
     print(f"kernel K on the node bank ({len(groups)} classes): largest difference "
           f"{errs[0]!r} nats (envelope score), {errs[1]!r} (null2 log-ratios)")
 
@@ -947,12 +956,12 @@ def test_pair_kernels_mixed_shuffled(domain_edge_rows, kernel):
     order = numpy.random.default_rng(21).permutation(int(keep.sum()))
     s_idx, p_idx = s_idx[keep][order], p_idx[keep][order]
     assert len(set(bank.class_of[p_idx[:8]].tolist())) > 1
-    before = _build.launches[kernel]
+    TIMER.reset()
     if kernel == "pair_posterior":
         _check_pair_posterior(pack, bank, s_idx, p_idx)
     else:
         _check_pair_align(pack, bank, s_idx, p_idx, 17)
-    assert _build.launches[kernel] == before + 5
+    assert _launches(kernel) == 5
 
 
 def test_pair_domains_cuda_matches_torch_and_stream(workload):

@@ -21,7 +21,7 @@ from gecco_tpu.hmm.synthetic import plant_domain, synthetic_profiles, synthetic_
 
 from gecco_tpu_torch.hmm.bank import NEG, TorchBank, width_class
 from gecco_tpu_torch.hmm.kernels import (
-    SeqPack, flatten_pairs, pack_mask, pair_blocks, ssv_filter, viterbi_pairs)
+    SeqPack, pack_mask, pair_blocks, ssv_filter, viterbi_pairs)
 from gecco_tpu_torch.hmm.profile import profiles_from_arrays
 from gecco_tpu_torch.hmm import kernels as port_kernels
 from gecco_tpu_torch.hmm.stream import FORWARD_BLOCK_ROWS, forward_launches, forward_pairs
@@ -124,9 +124,14 @@ def test_ssv_filter_matches_pallas_ssv_pair():
 
 
 def _survivors(n_seqs, P):
-    """A ragged survivor pattern with an empty row."""
-    return {s: [p for p in range(P) if (s + p) % 3 != 0]
-            for s in range(n_seqs) if s != 1}
+    """A ragged survivor mask with an empty row: its pairs as the search
+    takes them (``numpy.nonzero``, row-major) and each non-empty row's
+    profiles."""
+    s, p = numpy.indices((n_seqs, P))
+    mask = ((s + p) % 3 != 0) & (s != 1)
+    s_arr, p_arr = numpy.nonzero(mask)
+    return s_arr, p_arr, {i: numpy.flatnonzero(row).tolist() for i, row in enumerate(mask)
+                          if row.any()}
 
 
 def test_viterbi_pairs_match_pallas_and_host(workload):
@@ -134,8 +139,7 @@ def test_viterbi_pairs_match_pallas_and_host(workload):
     from gecco_tpu.hmm.kernels import SeqPack as JaxSeqPack
 
     profiles, seqs, host, bank = workload
-    survivors = _survivors(len(seqs), host.P)
-    s_arr, p_arr = flatten_pairs(survivors)
+    s_arr, p_arr, survivors = _survivors(len(seqs), host.P)
     mine = viterbi_pairs(SeqPack(seqs, "cpu"), bank, s_arr, p_arr).numpy()
     keys = sorted(survivors)
     jax_pack = JaxSeqPack(seqs, 256)
@@ -264,8 +268,7 @@ def test_forward_pairs_match_pallas_and_host(workload):
     from gecco_tpu.hmm.stream import StreamScores
 
     profiles, seqs, host, bank = workload
-    survivors = _survivors(len(seqs), host.P)
-    s_arr, p_arr = flatten_pairs(survivors)
+    s_arr, p_arr, survivors = _survivors(len(seqs), host.P)
     mine = forward_pairs(SeqPack(seqs, "cpu"), bank, s_arr, p_arr).numpy()
     keys = sorted(survivors)
     s_loc, p_j, v_j = StreamScores(host).flat_packed(

@@ -27,6 +27,7 @@ from gecco_tpu_torch.parallel import (
     crf_train_step, make_mesh, merge_clusters, pipelined_map, shard_sequences,
     sharded_forward_scores,
 )
+from gecco_tpu_torch.profiling import TIMER
 from gecco_tpu_torch.seq import Seq, SeqRecord
 
 torch.set_num_threads(1)
@@ -97,21 +98,24 @@ def test_initialize_single_process():
 
 
 def test_launch_counts_survive_threads():
-    """Threads counting one kernel's launches side by side lose none."""
-    _build.reset_launches()
+    """Threads counting one kernel's launches side by side lose none; the
+    build module's ``launches`` reads them (as the benchmark's child
+    process records them) and a reset clears them."""
+    TIMER.reset()
 
     def count():
         for _ in range(5000):
-            _build.count_launch("ssv_filter")
+            TIMER.count("launch.ssv_filter")
 
     threads = [threading.Thread(target=count) for _ in range(8)]
     for t in threads:
         t.start()
     for t in threads:
         t.join()
-    assert _build.launches["ssv_filter"] == 40000
-    _build.reset_launches()
-    assert not any(_build.launches.values())
+    assert TIMER.counters["launch.ssv_filter"] == 40000
+    assert _build.launches == {"ssv_filter": 40000}
+    TIMER.reset()
+    assert "launch.ssv_filter" not in TIMER.counters and _build.launches == {}
 
 
 @pytest.fixture(scope="module")
@@ -126,20 +130,34 @@ def _key(h):
     return (h.sequence_index, h.profile.name)
 
 
+def _stage_spans():
+    """The devices of the timer's search stage spans, by name."""
+    out = {}
+    for span in TIMER.export()["spans"]:
+        if span["name"] in ("filter", "viterbi", "forward", "domains"):
+            out.setdefault(span["name"], []).append(span["device"])
+    return out
+
+
 @pytest.mark.parametrize("use_accelerator", [True, False], ids=["device", "host"])
 def test_pipeline_multi_device_matches_single(multidomain, use_accelerator):
     """Three CPU shards give the one-device search's hits, scores and
-    domains; counts and cells sum over the shards that ran, seconds are
-    the slowest shard's, ``stage_devices`` counts the shards."""
+    domains; counts and cells sum over the shards that ran, each shard
+    times its stages in spans of its own, ``stage_devices`` counts the
+    shards."""
     profiles, seqs = multidomain
     if not use_accelerator:
         seqs = seqs[:5]
     single = SearchPipeline(profiles, device="cpu", Z=6, domZ=6,
                             use_accelerator=use_accelerator)
+    TIMER.reset()
     expected = single.search(seqs)
+    single_spans = _stage_spans()
     multi = SearchPipeline(profiles, device="cpu", Z=6, domZ=6, devices=["cpu"] * 3,
                            use_accelerator=use_accelerator)
+    TIMER.reset()
     hits = multi.search(seqs)
+    multi_spans = _stage_spans()
     assert expected and [_key(h) for h in hits] == [_key(h) for h in expected]
     for a, b in zip(hits, expected):
         assert a.score == pytest.approx(b.score, abs=1e-4)
@@ -155,9 +173,9 @@ def test_pipeline_multi_device_matches_single(multidomain, use_accelerator):
     for key, cells in single.stage_cells.items():
         assert multi.stage_cells[key] == pytest.approx(cells)
     shards = shard_sequences(seqs, 3)
-    for key in single.stage_seconds:
-        assert multi.stage_seconds[key] == max(
-            sub.stage_seconds[key] for sub in multi._subs)
+    # each stage span once a shard, naming the shard's device
+    assert single_spans and all(devices == [None] for devices in single_spans.values())
+    assert multi_spans == {name: ["cpu"] * 3 for name in single_spans}
     assert multi.host_pairs == sum(sub.host_pairs for sub in multi._subs)
     assert multi.candidate_pairs == sorted(single.candidate_pairs)
     got, want = multi.rescored_pairs, single.rescored_pairs
